@@ -1,0 +1,197 @@
+"""Infinite scene generation, splat-conditioned, batch 1 — port of the splat
+path of `sgam_neurips22_tpu/pipeline/scene_generation.py`.
+
+The plan (per-step target, sources, relative transforms) is built on the
+host from the pose grid and uploaded once; the unroll is one loop over it
+in which every frame stays on the device: source gather -> splat
+conditioning -> encode -> nearest codeword -> decode -> depth decode ->
+write into the [G, H, W, 3] RGB and [G, H, W] depth buffers, updated in
+place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from sgam_neurips22_tpu_torch.core.device import resolve_device
+from sgam_neurips22_tpu_torch.geometry.codec import get_codec
+from sgam_neurips22_tpu_torch.models.conditioning import get_x
+from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
+from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
+from sgam_neurips22_tpu_torch.pipeline.selection import select_sources
+from sgam_neurips22_tpu_torch.pipeline.trajectory import default_intrinsics, prepare_grid
+
+# reference num_src defaults (inference_pipeline.py:68,90)
+DEFAULT_NUM_SRC = {"clevr-infinite": 5, "google_earth": 3}
+
+
+@dataclass(frozen=True)
+class SceneGenConfig:
+    dataset: str = "clevr-infinite"
+    output_dim: Tuple[int, int] = (20, 20)
+    num_src: Optional[int] = None
+    topk: int = 1
+    step_size_denom: float = 2.0
+    order: str = "zigzag"
+    image_resolution: Tuple[int, int] = (256, 256)
+    collision: str = "nearest"
+    splat_stride: int = 1
+
+    def __post_init__(self):
+        if self.collision != "nearest" or self.splat_stride != 1:
+            raise NotImplementedError(
+                f"collision={self.collision!r}, splat_stride={self.splat_stride}: "
+                "only 'nearest' at stride 1 is ported (ROADMAP.md, queue item (b))"
+            )
+        if self.topk != 1:
+            raise NotImplementedError(
+                f"topk={self.topk}: only topk=1 is ported (ROADMAP.md, queue item (b))"
+            )
+        h, w = self.image_resolution
+        pts = self.effective_num_src * h * w
+        if pts >= (1 << 19):
+            # the packed z-buffer key holds 19 bits of point index
+            raise ValueError(
+                f"splat conditioning at {h}x{w} with {self.effective_num_src} "
+                f"sources produces {pts} points/frame, over the packed "
+                "z-buffer's 2^19 point capacity"
+            )
+
+    @property
+    def effective_num_src(self) -> int:
+        return self.num_src or DEFAULT_NUM_SRC[self.dataset]
+
+
+class InfiniteSceneGeneration:
+    """Drives the autoregressive unroll. The host keeps the planning data
+    (pose table, visit order); frames live on `device`.
+
+    Args:
+      model: a VQModel; it is moved to `device` (in place, as
+        nn.Module.to does) and put in eval mode.
+      seeds: [(coord (i, j), rgb [H, W, 3] in [-1, 1], z-depth [H, W])],
+        numpy or tensors.
+      intrinsics: [3, 3] K; None = the dataset's, scaled to the frames.
+      device: "cuda" (default) or "cpu"; see core.device.resolve_device.
+    """
+
+    def __init__(
+        self,
+        model: VQModel,
+        cfg: SceneGenConfig,
+        seeds: list,
+        intrinsics: Optional[np.ndarray] = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = cfg
+        self.codec = get_codec(cfg.dataset)
+        if intrinsics is None:
+            intrinsics = default_intrinsics(cfg.dataset, cfg.image_resolution)
+        self.grid = prepare_grid(cfg.dataset, cfg.output_dim, cfg.step_size_denom, intrinsics)
+        self.order = ORDERS[cfg.order](self.grid.rows, self.grid.cols)
+        self.ks = torch.as_tensor(
+            np.tile(self.grid.K.astype(np.float32), (cfg.effective_num_src, 1, 1)),
+            device=self.device,
+        )
+        self._seeds = seeds
+        self._plan_key = None
+        self.reset()
+
+    def reset(self, seeds: Optional[list] = None) -> None:
+        """(Re)initialise the frame buffers and visited state from the seeds."""
+        if seeds is not None:
+            self._seeds = seeds
+        h, w = self.cfg.image_resolution
+        g = self.grid.size
+        self.rgb_buf = torch.zeros((g, h, w, 3), dtype=torch.float32, device=self.device)
+        self.depth_buf = torch.zeros((g, h, w), dtype=torch.float32, device=self.device)
+        self.grid.visited[:] = False
+        for coord, rgb, depth in self._seeds:
+            idx = self.grid.index(*coord)
+            self.rgb_buf[idx] = torch.as_tensor(rgb, dtype=torch.float32)
+            self.depth_buf[idx] = torch.as_tensor(depth, dtype=torch.float32)
+            self.grid.visited[idx] = True
+        self.curr = 1
+
+    def _step_inputs_host(self, tgt_coord, curr):
+        """Numpy inputs of the `curr`-th step: source indices padded to
+        num_src (+ mask) and source->target relative transforms."""
+        n = self.cfg.effective_num_src
+        src_coords = select_sources(self.grid, self.order, curr, tgt_coord, n, self.cfg.dataset)
+        idxs = [self.grid.index(*c) for c in src_coords]
+        mask = np.zeros(n, np.float32)
+        mask[: len(idxs)] = 1.0
+        pad = idxs + [idxs[0] if idxs else 0] * (n - len(idxs))
+        t_tgt = self.grid.w2c(self.grid.index(*tgt_coord))
+        r_rels = np.zeros((n, 3, 3), np.float32)
+        t_rels = np.zeros((n, 3), np.float32)
+        for i, idx in enumerate(pad):
+            t_rel = t_tgt @ np.linalg.inv(self.grid.w2c(idx))
+            r_rels[i] = t_rel[:3, :3]
+            t_rels[i] = t_rel[:3, 3]
+        return np.asarray(pad, np.int64), mask, r_rels, t_rels
+
+    def build_plan(self) -> dict:
+        """The whole unroll's plan: per step the target index (host ints)
+        and the sources, mask and transforms (stacked on the device).
+        Memoised on (curr, visited), so repeated unrolls of one trajectory
+        skip the host planning and the upload."""
+        key = (self.curr, self.grid.visited.tobytes())
+        if self._plan_key == key:
+            return self._plan
+        visited = self.grid.visited.copy()
+        steps = []
+        try:
+            for curr in range(self.curr, len(self.order)):
+                tgt_coord = self.order[curr]
+                steps.append((self.grid.index(*tgt_coord), *self._step_inputs_host(tgt_coord, curr)))
+                self.grid.visited[steps[-1][0]] = True
+        finally:
+            self.grid.visited = visited
+        tgt, src_idx, mask, r_rels, t_rels = (list(x) for x in zip(*steps)) if steps else ([],) * 5
+        plan = {"tgt": tgt}
+        for name, arrs in (("src_idx", src_idx), ("src_mask", mask), ("r_rels", r_rels), ("t_rels", t_rels)):
+            plan[name] = torch.as_tensor(np.stack(arrs), device=self.device) if arrs else None
+        self._plan_key, self._plan = key, plan
+        return plan
+
+    def step_batch(self, plan: dict, t: int) -> dict:
+        """The NHWC conditioning batch of step t, gathered from the buffers."""
+        h, w = self.cfg.image_resolution
+        src_idx = plan["src_idx"][t]
+        return {
+            "dst_img": torch.zeros((1, h, w, 3), device=self.device),
+            "dst_depth": torch.full((1, h, w), self.codec.depth_range[0], device=self.device),
+            "src_imgs": self.rgb_buf[src_idx][None],
+            "src_depths": self.depth_buf[src_idx][None],
+            "Ks": self.ks[None],
+            "R_rels": plan["r_rels"][t][None],
+            "t_rels": plan["t_rels"][t][None],
+            "src_masks": plan["src_mask"][t][None],
+        }
+
+    def decode_batch(self, cond):
+        """(rgb [B, H, W, 3], metric depth [B, H, W]) from the conditioning."""
+        res = self.model(cond.x, extrapolation_mask=cond.extrapolation_mask, topk=self.cfg.topk)
+        xrec = res.xrec[:, 0]  # sample 0
+        return torch.clamp(xrec[..., :3], -1.0, 1.0), self.codec.decode(xrec[..., 3])
+
+    @torch.inference_mode()
+    def scene_expansion(self, generator: Optional[torch.Generator] = None):
+        """Unroll the rest of the grid. Returns the (rgb [G, H, W, 3],
+        depth [G, H, W]) device buffers. `generator` is the sampling
+        generator for topk > 1; the ported topk=1 draws nothing."""
+        plan = self.build_plan()
+        for t, tgt in enumerate(plan["tgt"]):
+            cond = get_x(self.step_batch(plan, t), self.cfg.dataset, depth_range=None)
+            rgb, depth = self.decode_batch(cond)
+            self.rgb_buf[tgt] = rgb[0]
+            self.depth_buf[tgt] = depth[0]
+        self.grid.visited[:] = True
+        self.curr = len(self.order)
+        return self.rgb_buf, self.depth_buf
