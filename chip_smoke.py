@@ -4,16 +4,29 @@
     python3 chip_smoke.py [--profile] [--out DIR]
 
 From the repository root. It builds the port's CUDA kernels from csrc/,
-holds each against its plain PyTorch version on the card and times both,
-unrolls the flagship clevr-infinite flythrough (256^2, 5 sources, topk=1,
-seeded random weights) through `InfiniteSceneGeneration.scene_expansion`,
-checks that both kernels ran once per frame, and compares one full-width
-step on the card with the same step on the CPU. Each phase prints one JSON
-line; --out DIR also writes the details to DIR/chip_smoke.json and nvcc's
-register report to DIR/chip_smoke_ptxas.txt. The last line is
-{"ok": true, "device": {...}} and is printed only when every check passed.
-It exits non-zero without that line when CUDA is unavailable or any check
-fails. --profile adds a torch.profiler pass over one more unroll.
+holds each against its plain PyTorch version on the card at the shapes
+both paths launch it at and times both (and the one-call library
+equivalent), then drives the port's two paths
+with the flagship clevr-infinite model (256^2, 5 sources, topk=1, seeded
+random weights):
+
+- unroll: one scene's flythrough through
+  `InfiniteSceneGeneration.scene_expansion` (batch 1, plain attention),
+  checking that the z-buffer and codeword kernels ran once per frame and
+  the flash-attention kernel never; then one full-width step on the card
+  against the same step on the CPU;
+- unroll_batched: 8 scenes at once through `scene_expansion_batched`
+  (batch 8, flash attention), checking one z-buffer and one codeword launch
+  per step and 7 flash-attention launches per step, with the device's idle
+  share from a profiled unroll; then one step of 2 scenes on the card
+  against the CPU.
+
+Each phase prints one JSON line with its seconds; --out DIR also writes the
+details to DIR/chip_smoke.json and nvcc's register report to
+DIR/chip_smoke_ptxas.txt. The last line is {"ok": true, "device": {...}}
+and is printed only when every check passed. It exits non-zero without
+that line when CUDA is unavailable or any check fails. --profile adds a
+torch.profiler pass over one more batch-1 unroll.
 """
 from __future__ import annotations
 
@@ -32,6 +45,8 @@ F32_FLOP_PER_S = 67e12
 SEED = 0
 H = W = 256
 FRAMES = 24  # frames generated per unroll: the flythrough grid is (FRAMES + 1) x 1
+SCENES = 8  # scenes of the batched unroll, as bench.py's batched_8_scenes
+FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (2, 300, 128))  # main path x2, ragged S
 
 
 def emit(obj) -> None:
@@ -112,77 +127,180 @@ def splat_keys(torch, np, gen, n_src: int, rng):
 
 
 def check_zbuffer(torch, np, gen, failures):
+    """The z-buffer kernel against its plain version, bit-exact, at the
+    batch-1 unroll's shape (pix/key [1, 327680]) and the batched unroll's
+    ([8, 327680], one splat per image): each on a real splat and on a
+    collision-heavy case. The reported times and bound are batch 1's; every
+    shape's are under "shapes"."""
     from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX, zbuffer_min, zbuffer_min_plain
 
     rng = np.random.default_rng(SEED)
-    pix, key = splat_keys(torch, np, gen, 5, rng)
-    b, p = pix.shape
-    # collision-heavy: every point on one of 1024 pixels, 20% invalid
-    cp = torch.tensor(rng.integers(0, 1024, (b, p)), dtype=torch.int32, device=gen.device)
-    ck = torch.tensor(rng.integers(0, 2**31 - 1, (b, p)), dtype=torch.int32, device=gen.device)
-    invalid = torch.tensor(rng.random((b, p)) < 0.2, device=gen.device)
-    cases = {"splat": (pix, key), "collisions": (torch.where(invalid, 0, cp), torch.where(invalid, IMAX, ck))}
-    err, exact = 0, True
-    for name, (cpix, ckey) in cases.items():
-        out, ref = zbuffer_min(cpix, ckey, H, W), zbuffer_min_plain(cpix, ckey, H, W)
-        torch.cuda.synchronize()
-        exact &= torch.equal(out, ref)
-        err = max(err, int((out.long() - ref.long()).abs().max()))
-    if not exact:
-        failures.append("zbuffer_min differs from zbuffer_min_plain")
-    base, idx = torch.full((b, H * W), IMAX, dtype=torch.int32, device=gen.device), pix.long()
-    b_ms, b_by = bound(2 * 4 * b * p + 4 * b * H * W, 0)
+    shapes = []
+    for batch in (1, SCENES):
+        pix, key = (torch.cat(x) for x in zip(*(splat_keys(torch, np, gen, 5, rng) for _ in range(batch))))
+        b, p = pix.shape
+        # collision-heavy: every point on one of 1024 pixels, 20% invalid
+        cp = torch.tensor(rng.integers(0, 1024, (b, p)), dtype=torch.int32, device=gen.device)
+        ck = torch.tensor(rng.integers(0, 2**31 - 1, (b, p)), dtype=torch.int32, device=gen.device)
+        invalid = torch.tensor(rng.random((b, p)) < 0.2, device=gen.device)
+        cases = {"splat": (pix, key), "collisions": (torch.where(invalid, 0, cp), torch.where(invalid, IMAX, ck))}
+        err, exact = 0, True
+        for cpix, ckey in cases.values():
+            out, ref = zbuffer_min(cpix, ckey, H, W), zbuffer_min_plain(cpix, ckey, H, W)
+            torch.cuda.synchronize()
+            exact &= torch.equal(out, ref)
+            err = max(err, int((out.long() - ref.long()).abs().max()))
+        base, idx = torch.full((b, H * W), IMAX, dtype=torch.int32, device=gen.device), pix.long()
+        b_ms, b_by = bound(2 * 4 * b * p + 4 * b * H * W, 0)
+        shapes.append({
+            "shape": {"pix": [b, p], "pixels": H * W}, "ok": exact, "bit_exact": exact, "max_abs_err": err,
+            "valid_points": int((key != IMAX).sum()),
+            **timings(torch, lambda: zbuffer_min(pix, key, H, W),
+                      lambda: zbuffer_min_plain(pix, key, H, W),
+                      lambda: torch.scatter_reduce(base, 1, idx, key, "amin")),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        if not exact:
+            failures.append(f"zbuffer_min differs from zbuffer_min_plain at pix [{b}, {p}]")
+    ok = all(x["ok"] for x in shapes)
     return {
         "name": "zbuffer_min", "route": "cuda",
         "source": "sgam_neurips22_tpu_torch/csrc/zbuffer_min.cu",
         "replaces": "sgam_neurips22_tpu/ops/splat_pallas.py:88",
-        "ok": exact, "bit_exact": exact, "max_abs_err": err,
-        "shape": {"pix": [b, p], "pixels": H * W},
-        "valid_points": int((key != IMAX).sum()),
-        **timings(torch, lambda: zbuffer_min(pix, key, H, W),
-                  lambda: zbuffer_min_plain(pix, key, H, W),
-                  lambda: torch.scatter_reduce(base, 1, idx, key, "amin")),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "ok": ok, "bit_exact": ok, "max_abs_err": max(x["max_abs_err"] for x in shapes),
+        **{k: v for k, v in shapes[0].items() if k not in ("ok", "bit_exact", "max_abs_err")},
+        "shapes": shapes,
     }
 
 
-def check_nearest_codeword(torch, model, failures, p=256):
+def check_nearest_codeword(torch, model, failures):
+    """The codeword search against its plain version at the batch-1
+    unroll's P=256 rows and the batched unroll's P=8*256 (another K-split
+    grid): distances at rtol 1e-5, indices equal but at f32 near-ties. The
+    reported times and bound are P=256's; every shape's are under "shapes"."""
     from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword, nearest_codeword_plain
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     cb = model.codebook.detach()  # seeded flagship init, uniform(-1/K, 1/K)
     k, d = cb.shape
-    z = torch.randn((p, d), generator=g, device=cb.device)
-    idx, dist = nearest_codeword(z, cb)
-    pidx, pdist = nearest_codeword_plain(z, cb)
-    torch.cuda.synchronize()
-    # an index may differ only at an f32 near-tie: the two codewords' exact
-    # (f64) scores e2 - 2 z.e within 1e-6 of the scale of their f32 sums
-    z64, e64 = z.double(), cb.double()
-    rows = torch.nonzero(idx != pidx).flatten()
-    ties_ok = True
-    for r in rows.tolist():
-        a, b_ = int(idx[r]), int(pidx[r])
-        score = [float(e64[j] @ e64[j] - 2 * z64[r] @ e64[j]) for j in (a, b_)]
-        scale = max(float(e64[j] @ e64[j] + 2 * (z64[r] * e64[j]).abs().sum()) for j in (a, b_))
-        ties_ok &= abs(score[0] - score[1]) <= 1e-6 * scale
-    dist_ok = bool(torch.allclose(dist, pdist, rtol=1e-5, atol=0.0))
-    ok = ties_ok and dist_ok
-    if not ok:
-        failures.append(f"nearest_codeword: ties_ok={ties_ok} dist_ok={dist_ok}")
-    b_ms, b_by = bound(4 * (p * d + k * d) + 8 * p, 2.0 * p * k * d)
+    e64 = cb.double()
+    shapes = []
+    for p in (256, SCENES * 256):
+        z = torch.randn((p, d), generator=g, device=cb.device)
+        idx, dist = nearest_codeword(z, cb)
+        pidx, pdist = nearest_codeword_plain(z, cb)
+        torch.cuda.synchronize()
+        # an index may differ only at an f32 near-tie: the two codewords' exact
+        # (f64) scores e2 - 2 z.e within 1e-6 of the scale of their f32 sums
+        z64 = z.double()
+        rows = torch.nonzero(idx != pidx).flatten()
+        ties_ok = True
+        for r in rows.tolist():
+            a, b_ = int(idx[r]), int(pidx[r])
+            score = [float(e64[j] @ e64[j] - 2 * z64[r] @ e64[j]) for j in (a, b_)]
+            scale = max(float(e64[j] @ e64[j] + 2 * (z64[r] * e64[j]).abs().sum()) for j in (a, b_))
+            ties_ok &= abs(score[0] - score[1]) <= 1e-6 * scale
+        dist_ok = bool(torch.allclose(dist, pdist, rtol=1e-5, atol=0.0))
+        ok = ties_ok and dist_ok
+        if not ok:
+            failures.append(f"nearest_codeword at P={p}: ties_ok={ties_ok} dist_ok={dist_ok}")
+        b_ms, b_by = bound(4 * (p * d + k * d) + 8 * p, 2.0 * p * k * d)
+        shapes.append({
+            "shape": {"P": p, "K": k, "D": d}, "ok": ok, "index_mismatches": len(rows), "near_ties_ok": ties_ok,
+            "max_abs_err": float((dist - pdist).abs().max()),
+            **timings(torch, lambda: nearest_codeword(z, cb),
+                      lambda: nearest_codeword_plain(z, cb),
+                      lambda: torch.cdist(z, cb).argmin(dim=1)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
     return {
         "name": "nearest_codeword", "route": "cuda",
         "source": "sgam_neurips22_tpu_torch/csrc/nearest_codeword.cu",
         "replaces": "sgam_neurips22_tpu/ops/vq_pallas.py:117",
-        "ok": ok, "index_mismatches": len(rows), "near_ties_ok": ties_ok,
-        "max_abs_err": float((dist - pdist).abs().max()),
-        "shape": {"P": p, "K": k, "D": d},
-        **timings(torch, lambda: nearest_codeword(z, cb),
-                  lambda: nearest_codeword_plain(z, cb),
-                  lambda: torch.cdist(z, cb).argmin(dim=1)),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "ok": all(x["ok"] for x in shapes), "max_abs_err": max(x["max_abs_err"] for x in shapes),
+        **{k: v for k, v in shapes[0].items() if k not in ("ok", "max_abs_err")},
+        "shapes": shapes,
     }
+
+
+def check_flash_attention(torch, failures):
+    """The flash-attention kernel against its plain version at the batched
+    unroll's two shapes (5 and 2 launches a step) and at a ragged S=300.
+    Tolerances: out max abs error 1e-4 at the flagship shapes and 2e-5 at
+    (2, 300, 128), the JAX kernel test's; lse 1e-5 relative. The reported
+    times and bound are the (8, 4096, 256) shape's, which takes most of the
+    time; every shape's are under "shapes"."""
+    from sgam_neurips22_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes, ok = [], True
+    for b, s, c in FLASH_SHAPES:
+        q, k, v = (torch.randn((b, s, c), generator=g, device="cuda") for _ in range(3))
+        out, lse = flash_attention_fwd(q, k, v)
+        pout, plse = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((out - pout).abs().max())
+        lse_rel = float(((lse - plse).abs() / plse.abs()).max())
+        tol = 2e-5 if s == 300 else 1e-4
+        ok_s = err <= tol and lse_rel <= 1e-5
+        ok &= ok_s
+        b_ms, b_by = bound(4 * (4 * b * s * c + b * s), 4.0 * b * s * s * c)
+        shapes.append({
+            "shape": [b, s, c], "ok": ok_s, "max_abs_err": err, "out_tol": tol,
+            "lse_max_rel_err": lse_rel, "lse_tol_rel": 1e-5,
+            **timings(torch, lambda: flash_attention_fwd(q, k, v),
+                      lambda: flash_attention_plain(q, k, v),
+                      lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        del q, k, v, out, lse, pout, plse
+    if not ok:
+        failures.append(f"flash_attention_fwd differs from flash_attention_plain: {shapes}")
+    main = shapes[0]
+    return {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "sgam_neurips22_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "sgam_neurips22_tpu/ops/attention_pallas.py:81",
+        "ok": ok, "max_abs_err": max(x["max_abs_err"] for x in shapes),
+        **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
+                                "library_call_ms", "bound_ms", "bound_by")},
+        "shapes": shapes,
+    }
+
+
+def backward_bounds() -> list:
+    """Bounds of the two TPU kernels not yet ported, the flash-attention
+    backward, at the training shape (B=16, configs/conditional_generation/
+    clevr-infinite.yaml; S=4096, C=256), from the work of _dq_kernel
+    (3 products of [S, S] x C: 6*B*S^2*C) and _dkv_kernel (4: 8*B*S^2*C)."""
+    b, s, c = 16, 4096, 256
+    out = []
+    for name, line, products, n_in, n_out in (("_dq_kernel", 120, 3, 4, 1), ("_dkv_kernel", 155, 4, 4, 2)):
+        b_ms, b_by = bound(4 * ((n_in + n_out) * b * s * c + 2 * b * s), 2.0 * products * b * s * s * c)
+        out.append({"name": name, "replaces": f"sgam_neurips22_tpu/ops/attention_pallas.py:{line}",
+                    "shape": [b, s, c], "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def ptxas_summary(reports: dict) -> dict:
+    """{kernel function: registers and spill bytes} from nvcc's -Xptxas -v."""
+    import re
+
+    out = {}
+    for log in reports.values():
+        fn = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                out[fn] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def model_gflop(torch, cfg) -> dict:
@@ -206,9 +324,10 @@ def model_gflop(torch, cfg) -> dict:
 
 
 KERNEL_GROUPS = (  # profiler kernel name -> layer, first match wins
+    ("flash_fwd_kernel", "ours: flash_attention_fwd"),
     ("zbuffer_min_kernel", "ours: zbuffer_min"),
     ("search_kernel|sqnorm_kernel|finalize_kernel", "ours: nearest_codeword"),
-    ("fprop|cudnn|nchwToNhwc|nhwcToNchw|conv", "conv (cuDNN)"),
+    ("fprop|cudnn|nchwToNhwc|nhwcToNchw|conv|fft|pointwise_mult_and_sum_complex", "conv (cuDNN: implicit GEMM, FFT)"),
     ("gemm", "matmul (attention, plain GEMMs)"),
     ("softmax|SoftMax", "softmax"),
     ("reduce_kernel", "reductions (GroupNorm stats, splat z range)"),
@@ -216,21 +335,20 @@ KERNEL_GROUPS = (  # profiler kernel name -> layer, first match wins
 )
 
 
-def profile_unroll(torch, gen, timed_s: float) -> dict:
-    """Device time by kernel over one more unroll, grouped by layer, and
-    the device's idle share: 1 - device time / the timed unroll's wall time
-    (the profiler itself slows the host, so its own wall time is not used)."""
+def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
+    """Device time by kernel over one more call of unroll(), which makes
+    `frames` frames, grouped by layer, and the device's idle share:
+    1 - device time / the timed unroll's wall time (the profiler itself
+    slows the host, so its own wall time is not used)."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen.reset()
-    frames = len(gen.build_plan()["tgt"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gen.scene_expansion()
+        unroll()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = []
@@ -251,15 +369,20 @@ def profile_unroll(torch, gen, timed_s: float) -> dict:
     }
 
 
-def parity_step(torch, gen, cpu_model, failures) -> dict:
+def parity_step(torch, gen, cpu_model, failures, seeds_batch=None) -> dict:
     """Frame 1 of the unroll on the card against the same step on the CPU
-    (plain versions), same weights and inputs, stage by stage."""
+    (plain versions), same weights and inputs, stage by stage: for the
+    generator's own scene, or for the scenes of seeds_batch at once (the
+    flash-attention path at 2 scenes and up, as the batched unroll runs)."""
     from sgam_neurips22_tpu_torch.models.conditioning import get_x
     from sgam_neurips22_tpu_torch.models.vqgan.quantize import nearest_codeword_indices
 
-    gen.reset()
-    plan = gen.build_plan()
-    batch = gen.step_batch(plan, 0)
+    if seeds_batch is None:
+        gen.reset()
+        batch = gen.step_batch(gen.build_plan(), 0, gen.rgb_buf, gen.depth_buf)
+    else:
+        batch = gen.step_batch(gen.build_plan(), 0, *gen.batched_buffers(seeds_batch))
+    flash = batch["src_imgs"].shape[0] >= 2
     model, ds, codec = gen.model, gen.cfg.dataset, gen.codec
     with torch.inference_mode():
         cond = get_x(batch, ds)
@@ -287,6 +410,7 @@ def parity_step(torch, gen, cpu_model, failures) -> dict:
         depth, depth_c = codec.decode(xrec[..., 3]), codec.decode(xrec_c[..., 3])
         depth_rel = float(((depth - depth_c).abs() / depth_c.abs().clamp(min=1.0)).max())
     res = {
+        "scenes": int(x.shape[0]), "flash_attention": flash,
         "x_identical_pixel_share": x_agree, "x_rgb_identical_pixel_share": rgb_agree,
         "latent_max_err_rel": latent_rel,
         "index_agreement_gpu_vs_cpu_latents": float((idx.cpu() == idx_c).float().mean()),
@@ -298,9 +422,36 @@ def parity_step(torch, gen, cpu_model, failures) -> dict:
     return res
 
 
+def seed_frames(np, rng) -> list:
+    """One scene's seeds: a random frame at grid (0, 0)."""
+    return [((0, 0), rng.uniform(-1, 1, (H, W, 3)).astype(np.float32),
+             rng.uniform(8, 14, (H, W)).astype(np.float32))]
+
+
+def timed_unroll(torch, unroll, counters, prepare=lambda: None) -> tuple:
+    """One warm-up call of unroll(), then one timed call whose kernel
+    launches are counted, each after an untimed prepare():
+    (result, seconds, warm-up seconds, launches)."""
+    prepare()
+    t0 = time.perf_counter()
+    unroll()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    prepare()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = unroll()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return res, dt, warm, {fn.__name__: fn.launches for fn in counters}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="profile one more unroll")
+    ap.add_argument("--profile", action="store_true", help="profile one more batch-1 unroll")
     ap.add_argument("--out", type=Path, default=None, help="directory for the detailed JSON report")
     args = ap.parse_args(argv)
 
@@ -315,6 +466,7 @@ def main(argv=None) -> int:
     from sgam_neurips22_tpu_torch.core.state_dict import load_into, random_state_dict
     from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
     from sgam_neurips22_tpu_torch.ops import cuda_build
+    from sgam_neurips22_tpu_torch.ops.attention import flash_attention_fwd
     from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword
     from sgam_neurips22_tpu_torch.ops.zbuffer import zbuffer_min
     from sgam_neurips22_tpu_torch.pipeline.scene_generation import (
@@ -327,12 +479,14 @@ def main(argv=None) -> int:
     kind, card = torch.cuda.get_device_name(0), card_line()
     failures: list[str] = []
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    counters = (zbuffer_min, nearest_codeword, flash_attention_fwd)
+    t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
-    ptxas = cuda_build.build("zbuffer_min", "nearest_codeword")
+    ptxas = cuda_build.build("zbuffer_min", "nearest_codeword", "flash_attention_fwd")
     secs = time.perf_counter() - t0
-    report["build"] = {"seconds": secs, "built": sorted(ptxas)}
+    report["build"] = {"seconds": secs, "built": sorted(ptxas), "ptxas": ptxas_summary(ptxas)}
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke_ptxas.txt").write_text("\n".join(f"--- {k}\n{v}" for k, v in ptxas.items()))
@@ -343,57 +497,91 @@ def main(argv=None) -> int:
     load_into(cpu_model, random_state_dict(cpu_model, SEED))
     cpu_model.eval()
     rng = np.random.default_rng(SEED)
-    seeds = [((0, 0), rng.uniform(-1, 1, (H, W, 3)).astype(np.float32),
-              rng.uniform(8, 14, (H, W)).astype(np.float32))]
+    seeds = seed_frames(np, rng)
     cfg = SceneGenConfig(dataset="clevr-infinite", output_dim=(FRAMES + 1, 1), topk=1, image_resolution=(H, W))
     gen = InfiniteSceneGeneration(copy.deepcopy(cpu_model), cfg, seeds, device="cuda")
 
     # 2. kernels against their plain versions
-    kernels = [check_zbuffer(torch, np, gen, failures), check_nearest_codeword(torch, gen.model, failures)]
-    emit({"phase": "kernels", "kernels": kernels})
+    t0 = time.perf_counter()
+    kernels = [check_zbuffer(torch, np, gen, failures), check_nearest_codeword(torch, gen.model, failures),
+               check_flash_attention(torch, failures)]
+    report["not_ported"] = backward_bounds()
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "kernels": kernels,
+          "not_ported": report["not_ported"]})
 
-    # 3. the flythrough: one warm-up unroll, then one timed unroll whose
-    #    kernel launches are counted
+    # 3. the flythrough, batch 1: one warm-up unroll, then one timed unroll
+    #    whose kernel launches are counted
     t0 = time.perf_counter()
-    gen.scene_expansion()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    gen.reset()
-    torch.cuda.synchronize()
-    zbuffer_min.launches = nearest_codeword.launches = 0
-    t0 = time.perf_counter()
-    rgb, depth = gen.scene_expansion()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"zbuffer_min": zbuffer_min.launches, "nearest_codeword": nearest_codeword.launches}
+    (rgb, depth), dt, warm, launches = timed_unroll(torch, gen.scene_expansion, counters, gen.reset)
     finite = bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())
-    unroll = {
+    unroll_rep = {
         "frames": FRAMES, "seconds": dt, "frames_per_s": FRAMES / dt,
         "ms_per_frame": dt / FRAMES * 1e3, "warmup_seconds": warm,
         "launches": launches, "finite": finite, "card": card,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "gflop_per_frame": model_gflop(torch, flagship_config()),
     }
-    gflop = sum(unroll["gflop_per_frame"].values())
-    unroll["model_tflop_per_s"] = gflop * FRAMES / dt / 1e3
-    unroll["model_bound_ms_per_frame"] = gflop * 1e9 / F32_FLOP_PER_S * 1e3
-    emit({"phase": "unroll", **unroll})
+    gflop = sum(unroll_rep["gflop_per_frame"].values())
+    unroll_rep["model_tflop_per_s"] = gflop * FRAMES / dt / 1e3
+    unroll_rep["model_bound_ms_per_frame"] = gflop * 1e9 / F32_FLOP_PER_S * 1e3
     if not finite:
         failures.append("non-finite frames in the unroll")
-    if any(n != FRAMES for n in launches.values()):
-        failures.append(f"launch counts {launches} != {FRAMES} frames")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["kernel_ms"] = k["ms"]
+    want = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 0}
+    if launches != want:
+        failures.append(f"unroll launch counts {launches} != {want}")
     if args.profile:
-        report["profile"] = profile_unroll(torch, gen, dt)
-        emit({"phase": "profile", **{k: v for k, v in report["profile"].items() if k != "top"}})
+        gen.reset()
+        report["profile"] = profile_unroll(torch, gen.scene_expansion, FRAMES, dt)
+        unroll_rep["profile"] = {k: v for k, v in report["profile"].items() if k != "top"}
+    unroll_rep["phase_seconds"] = time.perf_counter() - t0
+    emit({"phase": "unroll", **unroll_rep})
 
     # 4. one full-width step on the card against the CPU
+    t0 = time.perf_counter()
     parity = parity_step(torch, gen, cpu_model, failures)
-    emit({"phase": "parity", **parity})
+    emit({"phase": "parity", "seconds": time.perf_counter() - t0, **parity})
 
-    report.update(kernels=kernels, unroll=unroll, parity=parity, failures=failures)
+    # 5. the batched flythrough: SCENES scenes, each from its own seed frame
+    t0 = time.perf_counter()
+    seeds_batch = [seed_frames(np, rng) for _ in range(SCENES)]
+    gen_b = InfiniteSceneGeneration(gen.model, cfg, seeds_batch[0], device="cuda")
+    (rgb_b, depth_b), dt_b, warm_b, launches_b = timed_unroll(
+        torch, lambda: gen_b.scene_expansion_batched(seeds_batch), counters)
+    frames_b = SCENES * FRAMES
+    finite_b = bool(torch.isfinite(rgb_b).all() and torch.isfinite(depth_b).all())
+    scenes_differ = not torch.equal(rgb_b[0, 1], rgb_b[1, 1])
+    batched = {
+        "scenes": SCENES, "frames_per_scene": FRAMES, "seconds": dt_b,
+        "frames_per_s": frames_b / dt_b, "ms_per_frame": dt_b / frames_b * 1e3,
+        "ms_per_step": dt_b / FRAMES * 1e3, "warmup_seconds": warm_b,
+        "launches": launches_b, "finite": finite_b, "scenes_0_1_differ_at_frame_1": scenes_differ,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
+    }
+    batched["model_tflop_per_s"] = gflop * frames_b / dt_b / 1e3
+    del rgb_b, depth_b
+    prof_b = profile_unroll(torch, lambda: gen_b.scene_expansion_batched(seeds_batch), frames_b, dt_b)
+    report["profile_batched"] = prof_b
+    batched.update({k: v for k, v in prof_b.items() if k != "top"})
+    batched["phase_seconds"] = time.perf_counter() - t0
+    emit({"phase": "unroll_batched", **batched})
+    if not (finite_b and scenes_differ):
+        failures.append(f"batched unroll: finite={finite_b} scenes_0_1_differ={scenes_differ}")
+    want_b = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 7 * FRAMES}
+    if launches_b != want_b:
+        failures.append(f"batched unroll launch counts {launches_b} != {want_b}")
+
+    # 6. one full-width step of 2 scenes on the card (flash kernel) against the CPU
+    t0 = time.perf_counter()
+    parity_b = parity_step(torch, gen_b, cpu_model, failures, seeds_batch[:2])
+    emit({"phase": "parity_batched", "seconds": time.perf_counter() - t0, **parity_b})
+
+    for k in kernels:
+        by_path = {"unroll": launches[k["name"]], "unroll_batched": launches_b[k["name"]]}
+        k["launches"] = by_path["unroll_batched" if k["name"] == "flash_attention_fwd" else "unroll"]
+        k["launches_by_path"] = by_path
+        k["kernel_ms"] = k["ms"]
+    report.update(kernels=kernels, unroll=unroll_rep, parity=parity, unroll_batched=batched,
+                  parity_batched=parity_b, failures=failures, seconds=time.perf_counter() - t_start)
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(card, flush=True)

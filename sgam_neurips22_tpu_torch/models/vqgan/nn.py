@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sgam_neurips22_tpu_torch.ops import attention
+
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
@@ -101,9 +103,16 @@ class ResnetBlock(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Single-head self-attention over the H*W tokens. At batch 1 this is
-    the plain matmul + softmax path (the JAX package leaves it to XLA);
-    the flash-attention kernel belongs to the batched slice."""
+    """Single-head self-attention over the H*W tokens.
+
+    At batch >= 2 it goes through `ops.attention.flash_attention`, the
+    flash-attention kernel on the card, as the JAX pipeline runs
+    `attn_block(..., flash=True)` for S >= 2 scenes. At batch 1 it is the
+    plain matmul + softmax path of the JAX `attn_block(..., flash=False)`,
+    with the scale applied after the dot as there: the batch-1 unroll's
+    codeword indices are held to the JAX ones, and
+    `ops.attention.flash_attention_plain` rounds as the kernel does (scale on
+    q before the dot) instead."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -119,6 +128,11 @@ class AttnBlock(nn.Module):
         q = self.q(hn).reshape(b, c, h * w).transpose(1, 2)  # [B, S, C]
         k = self.k(hn).reshape(b, c, h * w)  # [B, C, S]
         v = self.v(hn).reshape(b, c, h * w)  # [B, C, S]
-        weights = torch.softmax(torch.bmm(q, k) * (1.0 / math.sqrt(c)), dim=-1)
-        out = torch.bmm(v, weights.transpose(1, 2)).reshape(b, c, h, w)
+        if b >= 2:
+            out = attention.flash_attention(
+                q.contiguous(), k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+            ).transpose(1, 2).reshape(b, c, h, w)
+        else:
+            weights = torch.softmax(torch.bmm(q, k) * (1.0 / math.sqrt(c)), dim=-1)
+            out = torch.bmm(v, weights.transpose(1, 2)).reshape(b, c, h, w)
         return x + self.proj_out(out)

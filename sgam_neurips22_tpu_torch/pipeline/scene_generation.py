@@ -1,12 +1,14 @@
-"""Infinite scene generation, splat-conditioned, batch 1 — port of the splat
-path of `sgam_neurips22_tpu/pipeline/scene_generation.py`.
+"""Infinite scene generation, splat-conditioned — port of the splat path of
+`sgam_neurips22_tpu/pipeline/scene_generation.py`, for one scene
+(`scene_expansion`) and for S scenes at once (`scene_expansion_batched`).
 
 The plan (per-step target, sources, relative transforms) is built on the
 host from the pose grid and uploaded once; the unroll is one loop over it
 in which every frame stays on the device: source gather -> splat
 conditioning -> encode -> nearest codeword -> decode -> depth decode ->
 write into the [G, H, W, 3] RGB and [G, H, W] depth buffers, updated in
-place.
+place. The batched unroll keeps S scenes' buffers flat, [S*G, ...], shares
+the plan across scenes and runs the model at batch S with flash attention.
 """
 from __future__ import annotations
 
@@ -106,16 +108,10 @@ class InfiniteSceneGeneration:
         """(Re)initialise the frame buffers and visited state from the seeds."""
         if seeds is not None:
             self._seeds = seeds
-        h, w = self.cfg.image_resolution
-        g = self.grid.size
-        self.rgb_buf = torch.zeros((g, h, w, 3), dtype=torch.float32, device=self.device)
-        self.depth_buf = torch.zeros((g, h, w), dtype=torch.float32, device=self.device)
+        self.rgb_buf, self.depth_buf = self.batched_buffers([self._seeds])
         self.grid.visited[:] = False
-        for coord, rgb, depth in self._seeds:
-            idx = self.grid.index(*coord)
-            self.rgb_buf[idx] = torch.as_tensor(rgb, dtype=torch.float32)
-            self.depth_buf[idx] = torch.as_tensor(depth, dtype=torch.float32)
-            self.grid.visited[idx] = True
+        for coord, _, _ in self._seeds:
+            self.grid.visited[self.grid.index(*coord)] = True
         self.curr = 1
 
     def _step_inputs_host(self, tgt_coord, curr):
@@ -160,38 +156,93 @@ class InfiniteSceneGeneration:
         self._plan_key, self._plan = key, plan
         return plan
 
-    def step_batch(self, plan: dict, t: int) -> dict:
-        """The NHWC conditioning batch of step t, gathered from the buffers."""
+    def step_batch(self, plan: dict, t: int, rgb_flat, depth_flat) -> dict:
+        """The NHWC conditioning batch of step t for the S scenes whose
+        frames sit flat in rgb_flat [S*G, H, W, 3] / depth_flat [S*G, H, W]
+        (this generator's own buffers are the S = 1 case). Scene s reads its
+        sources at s*G + src_idx: one leading-axis gather for the batch."""
         h, w = self.cfg.image_resolution
+        g = self.grid.size
+        s = rgb_flat.shape[0] // g
         src_idx = plan["src_idx"][t]
+        flat_idx = (torch.arange(s, device=self.device) * g)[:, None] + src_idx[None]  # [S, N]
+        n = src_idx.shape[0]
         return {
-            "dst_img": torch.zeros((1, h, w, 3), device=self.device),
-            "dst_depth": torch.full((1, h, w), self.codec.depth_range[0], device=self.device),
-            "src_imgs": self.rgb_buf[src_idx][None],
-            "src_depths": self.depth_buf[src_idx][None],
-            "Ks": self.ks[None],
-            "R_rels": plan["r_rels"][t][None],
-            "t_rels": plan["t_rels"][t][None],
-            "src_masks": plan["src_mask"][t][None],
+            "dst_img": torch.zeros((s, h, w, 3), device=self.device),
+            "dst_depth": torch.full((s, h, w), self.codec.depth_range[0], device=self.device),
+            "src_imgs": rgb_flat[flat_idx],
+            "src_depths": depth_flat[flat_idx],
+            "Ks": self.ks[None].expand(s, n, 3, 3),
+            "R_rels": plan["r_rels"][t][None].expand(s, n, 3, 3),
+            "t_rels": plan["t_rels"][t][None].expand(s, n, 3),
+            "src_masks": plan["src_mask"][t][None].expand(s, n),
         }
 
     def decode_batch(self, cond):
-        """(rgb [B, H, W, 3], metric depth [B, H, W]) from the conditioning."""
+        """(rgb [B, H, W, 3], metric depth [B, H, W]) from the conditioning.
+        The model's attention takes the flash path at batch >= 2 and the
+        plain one at batch 1, as the JAX pipeline selects its kernel."""
         res = self.model(cond.x, extrapolation_mask=cond.extrapolation_mask, topk=self.cfg.topk)
         xrec = res.xrec[:, 0]  # sample 0
         return torch.clamp(xrec[..., :3], -1.0, 1.0), self.codec.decode(xrec[..., 3])
+
+    def _unroll(self, plan: dict, rgb_flat, depth_flat) -> None:
+        """Every step of the plan for all scenes of the flat buffers, which
+        take each new frame in place at s*G + tgt."""
+        s = rgb_flat.shape[0] // self.grid.size
+        scene_base = torch.arange(s, device=self.device) * self.grid.size
+        for t, tgt in enumerate(plan["tgt"]):
+            cond = get_x(self.step_batch(plan, t, rgb_flat, depth_flat), self.cfg.dataset, depth_range=None)
+            rgb, depth = self.decode_batch(cond)
+            dst = scene_base + tgt
+            rgb_flat[dst] = rgb
+            depth_flat[dst] = depth
 
     @torch.inference_mode()
     def scene_expansion(self, generator: Optional[torch.Generator] = None):
         """Unroll the rest of the grid. Returns the (rgb [G, H, W, 3],
         depth [G, H, W]) device buffers. `generator` is the sampling
         generator for topk > 1; the ported topk=1 draws nothing."""
-        plan = self.build_plan()
-        for t, tgt in enumerate(plan["tgt"]):
-            cond = get_x(self.step_batch(plan, t), self.cfg.dataset, depth_range=None)
-            rgb, depth = self.decode_batch(cond)
-            self.rgb_buf[tgt] = rgb[0]
-            self.depth_buf[tgt] = depth[0]
+        self._unroll(self.build_plan(), self.rgb_buf, self.depth_buf)
         self.grid.visited[:] = True
         self.curr = len(self.order)
         return self.rgb_buf, self.depth_buf
+
+    @torch.inference_mode()
+    def scene_expansion_batched(self, seeds_batch: list, generator: Optional[torch.Generator] = None):
+        """Unroll S scenes at once: one plan (this generator's trajectory
+        and visited state, as `build_plan` gives it) serves every scene, and
+        each step runs the splat and the model at batch S. This generator's
+        own buffers and state are left as they are.
+
+        Args:
+          seeds_batch: one seed list [(coord, rgb, depth), ...] per scene;
+            every scene must seed the same coords.
+          generator: the sampling generator for topk > 1; topk=1 draws nothing.
+        Returns:
+          (rgb [S, G, H, W, 3], depth [S, G, H, W]) on the device.
+        """
+        rgb_flat, depth_flat = self.batched_buffers(seeds_batch)
+        self._unroll(self.build_plan(), rgb_flat, depth_flat)
+        h, w = self.cfg.image_resolution
+        return rgb_flat.reshape(-1, self.grid.size, h, w, 3), depth_flat.reshape(-1, self.grid.size, h, w)
+
+    def batched_buffers(self, seeds_batch: list):
+        """The flat (rgb [S*G, H, W, 3], depth [S*G, H, W]) device buffers of
+        S scenes, zero but for each scene's seed frames at s*G + index.
+        Raises ValueError unless every scene seeds the same coords."""
+        if not seeds_batch:
+            raise ValueError("seeds_batch holds no scene")
+        coords0 = sorted(c for c, _, _ in seeds_batch[0])
+        if any(sorted(c for c, _, _ in seeds) != coords0 for seeds in seeds_batch[1:]):
+            raise ValueError("all scenes must seed the same grid coords")
+        h, w = self.cfg.image_resolution
+        s, g = len(seeds_batch), self.grid.size
+        rgb_flat = torch.zeros((s * g, h, w, 3), dtype=torch.float32, device=self.device)
+        depth_flat = torch.zeros((s * g, h, w), dtype=torch.float32, device=self.device)
+        for si, seeds in enumerate(seeds_batch):
+            for coord, rgb, depth in seeds:
+                idx = si * g + self.grid.index(*coord)
+                rgb_flat[idx] = torch.as_tensor(rgb, dtype=torch.float32)
+                depth_flat[idx] = torch.as_tensor(depth, dtype=torch.float32)
+        return rgb_flat, depth_flat

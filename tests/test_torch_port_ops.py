@@ -104,7 +104,7 @@ def test_nearest_codeword_first_occurrence_ties():
 def test_kernel_libraries_are_named_by_source_hash():
     """The build writes each kernel's library under a name carrying the
     hash of its source, into the package's build/ directory."""
-    for name in ("zbuffer_min", "nearest_codeword"):
+    for name in ("zbuffer_min", "nearest_codeword", "flash_attention_fwd"):
         path = cuda_build.lib_path(name)
         assert path.parent == cuda_build.BUILD_DIR
         assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
