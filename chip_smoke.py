@@ -3,12 +3,11 @@
 
     python3 chip_smoke.py [--profile] [--out DIR]
 
-From the repository root. It builds the port's CUDA kernels from csrc/,
-holds each against its plain PyTorch version on the card at the shapes
-both paths launch it at and times both (and the one-call library
-equivalent), then drives the port's two paths
-with the flagship clevr-infinite model (256^2, 5 sources, topk=1, seeded
-random weights):
+From the repository root. It builds the port's CUDA kernels from csrc/
+(four sources, five kernels), holds each against its plain PyTorch version
+on the card at the shapes the paths launch it at and times both (and the
+one-call library equivalent), then drives the port's three paths with the
+flagship clevr-infinite model (seeded random weights):
 
 - unroll: one scene's flythrough through
   `InfiniteSceneGeneration.scene_expansion` (batch 1, plain attention),
@@ -19,7 +18,19 @@ random weights):
   (batch 8, flash attention), checking one z-buffer and one codeword launch
   per step and 7 flash-attention launches per step, with the device's idle
   share from a profiled unroll; then one step of 2 scenes on the card
-  against the CPU.
+  against the CPU;
+- train: the conditional-generation GAN training step as `bench.py
+  --config train_conditional` defines it (batch 16, n_src 2, n_embed
+  16384, remat, flash attention, disc_start 0, Adam (0.5, 0.9), LPIPS with
+  seeded random weights) through `create_train_state` and `train_step`:
+  one warm-up step and 3 timed steps, checking finite losses, that every
+  trainable parameter moved and every frozen one did not, the kernel
+  launches per step (z-buffer 1, codeword 1, flash forward 12, dQ 7,
+  dK/dV 7) and the device's idle share from a profiled step; then
+  parity_train: one step at batch 2 on the card against the same step on
+  the CPU (logs, codeword indices, the discriminator's running statistics,
+  and every trainable gradient, both devices' also against the step's
+  gradients in float64 on the CPU).
 
 Each phase prints one JSON line with its seconds; --out DIR also writes the
 details to DIR/chip_smoke.json and nvcc's register report to
@@ -47,6 +58,7 @@ H = W = 256
 FRAMES = 24  # frames generated per unroll: the flythrough grid is (FRAMES + 1) x 1
 SCENES = 8  # scenes of the batched unroll, as bench.py's batched_8_scenes
 FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (2, 300, 128))  # main path x2, ragged S
+BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128))  # training step x2, ragged S
 
 
 def emit(obj) -> None:
@@ -268,18 +280,76 @@ def check_flash_attention(torch, failures):
     }
 
 
-def backward_bounds() -> list:
-    """Bounds of the two TPU kernels not yet ported, the flash-attention
-    backward, at the training shape (B=16, configs/conditional_generation/
-    clevr-infinite.yaml; S=4096, C=256), from the work of _dq_kernel
-    (3 products of [S, S] x C: 6*B*S^2*C) and _dkv_kernel (4: 8*B*S^2*C)."""
-    b, s, c = 16, 4096, 256
-    out = []
-    for name, line, products, n_in, n_out in (("_dq_kernel", 120, 3, 4, 1), ("_dkv_kernel", 155, 4, 4, 2)):
-        b_ms, b_by = bound(4 * ((n_in + n_out) * b * s * c + 2 * b * s), 2.0 * products * b * s * s * c)
-        out.append({"name": name, "replaces": f"sgam_neurips22_tpu/ops/attention_pallas.py:{line}",
-                    "shape": [b, s, c], "bound_ms": b_ms, "bound_by": b_by})
-    return out
+def check_flash_backward(torch, failures) -> list:
+    """The two flash-attention backward kernels against their plain versions
+    at the training step's two shapes (B=16: 5 and 2 launches a step each)
+    and at a ragged S=300, on the forward's (out, lse) of random q, k, v and
+    a random upstream gradient. Tolerances: each of dq, dk, dv within 1e-4
+    of that gradient's largest magnitude at the flagship shapes, 3e-5
+    absolute at (2, 300, 128) (the JAX kernel test's). Bounds from the work
+    of _dq_kernel (3 products of [S, S] x C: 6*B*S^2*C) and _dkv_kernel (4:
+    8*B*S^2*C). The library yardstick is the f32 backward of
+    scaled_dot_product_attention on a graph built beforehand; it computes
+    dq, dk and dv at once, so both rows carry its time. The reported times
+    and bounds are the (16, 4096, 256) shape's; every shape's are under
+    "shapes"."""
+    from sgam_neurips22_tpu_torch.ops.attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_dkv,
+        flash_attention_dkv_plain,
+        flash_attention_dq,
+        flash_attention_dq_plain,
+        flash_attention_fwd,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = {"flash_attention_dq": [], "flash_attention_dkv": []}
+    for b, s, c in BACKWARD_SHAPES:
+        q, k, v, dout = (torch.randn((b, s, c), generator=g, device="cuda") for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v)
+        dd = (dout * out).sum(dim=-1)
+        got = flash_attention_bwd(q, k, v, out, lse, dout)
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        errs = [float((x - r).abs().max()) for x, r in zip(got, ref)]
+        tols = [3e-5] * 3 if s == 300 else [1e-4 * float(r.abs().max()) for r in ref]
+        ok = all(e <= t for e, t in zip(errs, tols))
+        if not ok:
+            failures.append(f"flash_attention_bwd differs from flash_attention_bwd_plain at {(b, s, c)}: "
+                            f"errors {errs} > tolerances {tols}")
+        del got, ref
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+        library = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True)  # noqa: E731
+        for name, kernel, plain, n_out, products, grads in (
+            ("flash_attention_dq", flash_attention_dq, flash_attention_dq_plain, 1, 3, ("dq",)),
+            ("flash_attention_dkv", flash_attention_dkv, flash_attention_dkv_plain, 2, 4, ("dk", "dv")),
+        ):
+            b_ms, b_by = bound(4 * ((4 + n_out) * b * s * c + 2 * b * s), 2.0 * products * b * s * s * c)
+            idx = [("dq", "dk", "dv").index(x) for x in grads]
+            rows[name].append({
+                "shape": [b, s, c], "ok": ok, "max_abs_err": max(errs[i] for i in idx),
+                "tolerance": max(tols[i] for i in idx),
+                **timings(torch, lambda: kernel(q, k, v, dout, lse, dd), lambda: plain(q, k, v, dout, lse, dd),
+                          library),
+                "bound_ms": b_ms, "bound_by": b_by,
+            })
+        del q, k, v, dout, out, lse, dd, qg, kg, vg, lib_out, library
+    kernels = []
+    for name, line in (("flash_attention_dq", 120), ("flash_attention_dkv", 155)):
+        shapes, main = rows[name], rows[name][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sgam_neurips22_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"sgam_neurips22_tpu/ops/attention_pallas.py:{line}",
+            "ok": all(x["ok"] for x in shapes), "max_abs_err": max(x["max_abs_err"] for x in shapes),
+            **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
+                                    "library_call_ms", "bound_ms", "bound_by")},
+            "library": "scaled_dot_product_attention backward (dq, dk and dv at once)",
+            "shapes": shapes,
+        })
+    return kernels
 
 
 def ptxas_summary(reports: dict) -> dict:
@@ -325,10 +395,15 @@ def model_gflop(torch, cfg) -> dict:
 
 KERNEL_GROUPS = (  # profiler kernel name -> layer, first match wins
     ("flash_fwd_kernel", "ours: flash_attention_fwd"),
+    ("flash_dq_kernel", "ours: flash_attention_dq"),
+    ("flash_dkv_kernel", "ours: flash_attention_dkv"),
     ("zbuffer_min_kernel", "ours: zbuffer_min"),
     ("search_kernel|sqnorm_kernel|finalize_kernel", "ours: nearest_codeword"),
-    ("fprop|cudnn|nchwToNhwc|nhwcToNchw|conv|fft|pointwise_mult_and_sum_complex", "conv (cuDNN: implicit GEMM, FFT)"),
+    ("fprop|dgrad|wgrad|cudnn|nchwToNhwc|nhwcToNchw|conv|fft|pointwise_mult_and_sum_complex|gemm_cf32",
+     "conv (cuDNN: implicit GEMM, FFT)"),
     ("gemm", "matmul (attention, plain GEMMs)"),
+    ("batch_norm|bn_", "BatchNorm (discriminator)"),
+    ("adam|Adam|multi_tensor", "optimizer (Adam)"),
     ("softmax|SoftMax", "softmax"),
     ("reduce_kernel", "reductions (GroupNorm stats, splat z range)"),
     ("", "elementwise / copies / index"),
@@ -422,6 +497,232 @@ def parity_step(torch, gen, cpu_model, failures, seeds_batch=None) -> dict:
     return res
 
 
+TRAIN_BATCH = 16  # bench.py --config train_conditional
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4  # bench.py bench_train
+
+
+def train_config(torch, bs: int):
+    """The conditional-generation training configuration of `bench.py
+    --config train_conditional` on the flagship model: n_embed 16384,
+    remat, flash attention (the port's AttnBlock takes it at batch >= 2),
+    LossConfig(disc_start=0), LR 1e-4."""
+    import dataclasses
+
+    from sgam_neurips22_tpu_torch.serving import flagship_config
+    from sgam_neurips22_tpu_torch.training.losses import LossConfig
+    from sgam_neurips22_tpu_torch.training.train_step import TrainConfig
+
+    if bs < 2:
+        raise ValueError("the training phases run flash attention, which AttnBlock takes at batch >= 2")
+    model = flagship_config()
+    model = dataclasses.replace(model, phase="conditional_generation", n_embed=16384,
+                                ddconfig=dataclasses.replace(model.ddconfig, remat=True))
+    return TrainConfig(model=model, loss=LossConfig(disc_start=0), learning_rate=TRAIN_LR)
+
+
+def train_batch(torch, np, bs: int, device) -> dict:
+    """bench.py's conditional batch (n_src 2, 256^2), from numpy seed 2."""
+    rng = np.random.default_rng(2)
+    n, h, w = 2, H, W
+    k = np.array([[355.5555, 0, 128.0], [0, 355.5555, 128.0], [0, 0, 1.0]], np.float32)
+    arrays = {
+        "dst_img": rng.uniform(-1, 1, (bs, h, w, 3)), "dst_depth": rng.uniform(8, 14, (bs, h, w)),
+        "src_imgs": rng.uniform(-1, 1, (bs, n, h, w, 3)), "src_depths": rng.uniform(8, 14, (bs, n, h, w)),
+        "Ks": np.broadcast_to(k, (bs, n, 3, 3)), "R_rels": np.broadcast_to(np.eye(3), (bs, n, 3, 3)),
+        "t_rels": np.zeros((bs, n, 3)), "src_masks": np.ones((bs, n)),
+    }
+    return {key: torch.tensor(np.asarray(v, np.float32), device=device) for key, v in arrays.items()}
+
+
+def train_components(torch, state, lpips, batch, cfg) -> dict:
+    """Device time (CUDA events) of the step's two loss networks at the
+    step's shapes: LPIPS forward on (target, reconstruction) plus one
+    backward to the reconstruction (the step runs the backward twice: the
+    adaptive weight and the update), and the discriminator forward plus
+    backward to its input and its weights on one batch (the step runs it
+    forward three times and backward three times)."""
+    from sgam_neurips22_tpu_torch.training.train_step import model_inputs
+
+    with torch.no_grad():
+        _, x_dst, _ = model_inputs(batch, cfg)
+    xrec = x_dst.flip(0).clone().requires_grad_()
+
+    def lp():
+        torch.autograd.grad(lpips(x_dst[..., :3], xrec[..., :3]).mean(), xrec)
+
+    def disc():
+        torch.autograd.grad(state.disc(xrec).mean(), [xrec, *state.disc.parameters()])
+
+    stats = {k: v.clone() for k, v in state.disc.named_buffers()}
+    out = {"lpips_fwd_bwd_ms": cuda_ms(torch, lp, iters=5, warmup=1),
+           "disc_fwd_bwd_ms": cuda_ms(torch, disc, iters=5, warmup=1)}
+    for k, v in state.disc.named_buffers():
+        v.copy_(stats[k])
+    return out
+
+
+def run_train(torch, np, counters, failures) -> tuple:
+    """The training phase: state, a warm-up step, TRAIN_STEPS timed steps
+    (launches counted), parameter movement checks, one profiled step."""
+    from sgam_neurips22_tpu_torch.training.lpips import random_lpips
+    from sgam_neurips22_tpu_torch.training.train_step import create_train_state, split_params, train_step
+
+    cfg = train_config(torch, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, seed=SEED, device="cuda")
+    lpips = random_lpips(SEED + 2).cuda()
+    batch = train_batch(torch, np, TRAIN_BATCH, "cuda")
+    setup_s = time.perf_counter() - t0
+    trainable, frozen = split_params(state.model, cfg.phase)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    t0 = time.perf_counter()
+    _, logs = train_step(state, batch, lpips, cfg)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        _, logs = train_step(state, batch, lpips, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    totals = {fn.__name__: fn.launches for fn in counters}
+    launches = {k: v // TRAIN_STEPS for k, v in totals.items()}
+    exact = all(fn.launches % TRAIN_STEPS == 0 for fn in counters)
+    logs = {k: float(v) for k, v in logs.items()}
+    finite = all(np.isfinite(v) for v in logs.values())
+    unmoved = [n for n, p in trainable if torch.equal(p.detach(), before[n])]
+    moved_frozen = [n for n, p in frozen if not torch.equal(p.detach(), before[n])]
+    rep = {
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "seconds": dt, "ms_per_step": dt / TRAIN_STEPS * 1e3,
+        "images_per_s": TRAIN_BATCH * TRAIN_STEPS / dt, "warmup_seconds": warm, "setup_seconds": setup_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches_per_step": launches,
+        "launches": totals,
+        "finite": finite, "logs": logs, "trainable_tensors": len(trainable), "frozen_tensors": len(frozen),
+        "trainable_unmoved": unmoved, "frozen_moved": moved_frozen,
+    }
+    want = {"zbuffer_min": 1, "nearest_codeword": 1, "flash_attention_fwd": 12,
+            "flash_attention_dq": 7, "flash_attention_dkv": 7}
+    if not exact or launches != want:
+        failures.append(f"train launch counts per step {launches} (whole steps: {exact}) != {want}")
+    if not finite or unmoved or moved_frozen:
+        failures.append(f"train: finite={finite} trainable unmoved={unmoved} frozen moved={moved_frozen}")
+    prof = profile_unroll(torch, lambda: train_step(state, batch, lpips, cfg), 1, dt / TRAIN_STEPS)
+    rep.update({k: v for k, v in prof.items() if k != "top"})
+    rep["ms_per_step_by_layer"] = rep.pop("ms_per_frame_by_layer")
+    rep["device_busy_ms_per_step"] = rep.pop("device_busy_ms_per_frame")
+    rep.update(train_components(torch, state, lpips, batch, cfg))
+    del state, lpips, batch, before
+    return rep, prof
+
+
+def f64_gradients(torch, cfg, x, x_dst, mask) -> dict:
+    """The autoencoder gradients of the training step's loss in float64 on
+    the CPU, from the same seeded state and the same f32 conditioning: the
+    reference both f32 runs are measured against. The attention wrappers
+    take f32 only, so this run calls their plain versions directly."""
+    from sgam_neurips22_tpu_torch.ops import attention
+    from sgam_neurips22_tpu_torch.training.lpips import random_lpips
+    from sgam_neurips22_tpu_torch.training.train_step import _ae_loss, create_train_state, split_params
+
+    wrappers = attention.flash_attention_fwd, attention.flash_attention_bwd
+    attention.flash_attention_fwd, attention.flash_attention_bwd = (
+        attention.flash_attention_plain, attention.flash_attention_bwd_plain)
+    try:
+        state = create_train_state(cfg, seed=SEED, device="cpu")
+        state.model.double()
+        state.disc.double()
+        lpips = random_lpips(SEED + 2).double()
+        loss = _ae_loss(state.model, state.disc, lpips, x.cpu().double(), x_dst.cpu().double(), mask.cpu(), 0, cfg)[0]
+        names, params = zip(*split_params(state.model, cfg.phase)[0])
+        return dict(zip(names, torch.autograd.grad(loss, params)))
+    finally:
+        attention.flash_attention_fwd, attention.flash_attention_bwd = wrappers
+
+
+def parity_train(torch, np, failures, bs: int = 2) -> dict:
+    """One training step at batch `bs`, full width, on the card (kernels)
+    and on the CPU (plain versions) from the same seeded state and batch,
+    and the same step's autoencoder gradients in float64 on the CPU.
+
+    Tolerances: every log at rtol 1e-4 plus atol 1e-6, but the adaptive
+    weight d_weight at rtol 1e-3 (a ratio of gradient norms taken through
+    the discriminator's train-mode BatchNorm, whose input gradient is a
+    small residual of cancelling terms: each f32 run's d_weight is 2-3e-4
+    off the float64 one); codeword indices equal (from the same state
+    before the step); the discriminator's running statistics at rtol 1e-4,
+    atol 1e-6. Gradients, per trainable tensor, as max error over the
+    tensor's largest magnitude: the card's error against float64 no more
+    than 1.5 times the CPU f32 run's worst, and the card against the CPU
+    within 3e-2. The f32 step determines its gradients only to ~1% of each
+    tensor's largest (the CPU's f32 step is that far from float64 too), so
+    a tighter GPU-vs-CPU bound would test the arithmetic, not the port.
+    Tensors whose gradient is zero up to f32 noise (below 1e-5 of the
+    step's largest gradient: the key biases, which the softmax cancels)
+    only need to stay below that floor."""
+    from sgam_neurips22_tpu_torch.models.vqgan.quantize import nearest_codeword_indices
+    from sgam_neurips22_tpu_torch.training.lpips import random_lpips
+    from sgam_neurips22_tpu_torch.training.train_step import (
+        create_train_state,
+        model_inputs,
+        split_params,
+        train_step,
+    )
+
+    cfg = train_config(torch, bs)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        state = create_train_state(cfg, seed=SEED, device=dev)
+        lpips = random_lpips(SEED + 2).to(dev)
+        batch = train_batch(torch, np, bs, dev)
+        with torch.no_grad():
+            x, x_dst, mask = model_inputs(batch, cfg)
+            pre = state.model.encode_prequant(x, mask)
+            idx = nearest_codeword_indices(pre.reshape(-1, pre.shape[-1]), state.model.codebook).cpu()
+        _, logs = train_step(state, batch, lpips, cfg)
+        grads = {n: p.grad.detach().cpu().double() for n, p in split_params(state.model, cfg.phase)[0]}
+        stats = {n: b.detach().cpu() for n, b in state.disc.named_buffers()}
+        runs[dev] = ({k: float(v) for k, v in logs.items()}, idx, grads, stats, time.perf_counter() - t0)
+        del state, lpips, batch, pre
+    t0 = time.perf_counter()
+    ref = f64_gradients(torch, cfg, x, x_dst, mask)
+    f64_s = time.perf_counter() - t0
+    (g_logs, g_idx, g_grads, g_stats, g_s), (c_logs, c_idx, c_grads, c_stats, c_s) = runs["cuda"], runs["cpu"]
+
+    rtol = {k: 1e-3 if k.endswith("d_weight") else 1e-4 for k in c_logs}
+    log_err = {k: abs(g_logs[k] - c_logs[k]) / max(abs(c_logs[k]), 1e-30) for k in c_logs}
+    logs_ok = all(abs(g_logs[k] - c_logs[k]) <= rtol[k] * abs(c_logs[k]) + 1e-6 for k in c_logs)
+    floor = 1e-5 * max(float(g.abs().max()) for g in ref.values())
+    noise = sorted(n for n, r in ref.items() if float(r.abs().max()) < floor)
+    noise_ok = all(float(g[n].abs().max()) < floor for g in (g_grads, c_grads) for n in noise)
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).abs().max() / b[n].abs().max()) for n in b if n not in noise}
+
+    gpu64, cpu64, gpu_cpu = rel(g_grads, ref), rel(c_grads, ref), rel(g_grads, c_grads)
+    worst = {name: max(d.items(), key=lambda kv: kv[1]) for name, d in
+             (("gpu_vs_f64", gpu64), ("cpu_vs_f64", cpu64), ("gpu_vs_cpu", gpu_cpu))}
+    grads_ok = noise_ok and worst["gpu_vs_f64"][1] <= 1.5 * worst["cpu_vs_f64"][1] and worst["gpu_vs_cpu"][1] <= 3e-2
+    stats_ok = all(torch.allclose(g_stats[n], c, rtol=1e-4, atol=1e-6) for n, c in c_stats.items())
+    res = {
+        "batch": bs, "gpu_seconds": g_s, "cpu_seconds": c_s, "cpu_f64_seconds": f64_s,
+        "logs_gpu": g_logs, "logs_cpu": c_logs, "log_rel_err": log_err, "logs_ok": logs_ok,
+        "index_agreement": float((g_idx == c_idx).float().mean()),
+        "grad_tensors": len(ref), "grad_noise_tensors": noise, "grad_noise_floor": floor,
+        "grad_worst": worst, "grad_median_gpu_vs_f64": float(np.median(list(gpu64.values()))),
+        "grad_median_cpu_vs_f64": float(np.median(list(cpu64.values()))), "grads_ok": grads_ok,
+        "running_stats_max_abs_err": max(float((g_stats[n] - c).abs().max()) for n, c in c_stats.items()),
+        "running_stats_ok": stats_ok,
+    }
+    res["ok"] = logs_ok and res["index_agreement"] == 1.0 and grads_ok and stats_ok
+    if not res["ok"]:
+        failures.append(f"training step GPU vs CPU: {res}")
+    return res
+
 def seed_frames(np, rng) -> list:
     """One scene's seeds: a random frame at grid (0, 0)."""
     return [((0, 0), rng.uniform(-1, 1, (H, W, 3)).astype(np.float32),
@@ -466,7 +767,11 @@ def main(argv=None) -> int:
     from sgam_neurips22_tpu_torch.core.state_dict import load_into, random_state_dict
     from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
     from sgam_neurips22_tpu_torch.ops import cuda_build
-    from sgam_neurips22_tpu_torch.ops.attention import flash_attention_fwd
+    from sgam_neurips22_tpu_torch.ops.attention import (
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_fwd,
+    )
     from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword
     from sgam_neurips22_tpu_torch.ops.zbuffer import zbuffer_min
     from sgam_neurips22_tpu_torch.pipeline.scene_generation import (
@@ -479,12 +784,12 @@ def main(argv=None) -> int:
     kind, card = torch.cuda.get_device_name(0), card_line()
     failures: list[str] = []
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    counters = (zbuffer_min, nearest_codeword, flash_attention_fwd)
+    counters = (zbuffer_min, nearest_codeword, flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
     t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
-    ptxas = cuda_build.build("zbuffer_min", "nearest_codeword", "flash_attention_fwd")
+    ptxas = cuda_build.build("zbuffer_min", "nearest_codeword", "flash_attention_fwd", "flash_attention_bwd")
     secs = time.perf_counter() - t0
     report["build"] = {"seconds": secs, "built": sorted(ptxas), "ptxas": ptxas_summary(ptxas)}
     if args.out:
@@ -504,10 +809,8 @@ def main(argv=None) -> int:
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     kernels = [check_zbuffer(torch, np, gen, failures), check_nearest_codeword(torch, gen.model, failures),
-               check_flash_attention(torch, failures)]
-    report["not_ported"] = backward_bounds()
-    emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "kernels": kernels,
-          "not_ported": report["not_ported"]})
+               check_flash_attention(torch, failures), *check_flash_backward(torch, failures)]
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "kernels": kernels})
 
     # 3. the flythrough, batch 1: one warm-up unroll, then one timed unroll
     #    whose kernel launches are counted
@@ -526,7 +829,8 @@ def main(argv=None) -> int:
     unroll_rep["model_bound_ms_per_frame"] = gflop * 1e9 / F32_FLOP_PER_S * 1e3
     if not finite:
         failures.append("non-finite frames in the unroll")
-    want = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 0}
+    want = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 0,
+            "flash_attention_dq": 0, "flash_attention_dkv": 0}
     if launches != want:
         failures.append(f"unroll launch counts {launches} != {want}")
     if args.profile:
@@ -566,7 +870,8 @@ def main(argv=None) -> int:
     emit({"phase": "unroll_batched", **batched})
     if not (finite_b and scenes_differ):
         failures.append(f"batched unroll: finite={finite_b} scenes_0_1_differ={scenes_differ}")
-    want_b = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 7 * FRAMES}
+    want_b = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 7 * FRAMES,
+              "flash_attention_dq": 0, "flash_attention_dkv": 0}
     if launches_b != want_b:
         failures.append(f"batched unroll launch counts {launches_b} != {want_b}")
 
@@ -575,13 +880,32 @@ def main(argv=None) -> int:
     parity_b = parity_step(torch, gen_b, cpu_model, failures, seeds_batch[:2])
     emit({"phase": "parity_batched", "seconds": time.perf_counter() - t0, **parity_b})
 
+    # 7. the conditional-generation training step, batch 16
+    del gen, gen_b
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train, prof_t = run_train(torch, np, counters, failures)
+    report["profile_train"] = prof_t
+    train["phase_seconds"] = time.perf_counter() - t0
+    emit({"phase": "train", **train, "card": card})
+
+    # 8. one training step at batch 2 on the card against the CPU
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parity_t = parity_train(torch, np, failures)
+    emit({"phase": "parity_train", "seconds": time.perf_counter() - t0, **parity_t})
+
+    main_path = {"zbuffer_min": "unroll", "nearest_codeword": "unroll", "flash_attention_fwd": "unroll_batched",
+                 "flash_attention_dq": "train", "flash_attention_dkv": "train"}
     for k in kernels:
-        by_path = {"unroll": launches[k["name"]], "unroll_batched": launches_b[k["name"]]}
-        k["launches"] = by_path["unroll_batched" if k["name"] == "flash_attention_fwd" else "unroll"]
+        by_path = {"unroll": launches[k["name"]], "unroll_batched": launches_b[k["name"]],
+                   "train": train["launches"][k["name"]]}
+        k["launches"] = by_path[main_path[k["name"]]]
         k["launches_by_path"] = by_path
         k["kernel_ms"] = k["ms"]
     report.update(kernels=kernels, unroll=unroll_rep, parity=parity, unroll_batched=batched,
-                  parity_batched=parity_b, failures=failures, seconds=time.perf_counter() - t_start)
+                  parity_batched=parity_b, train=train, parity_train=parity_t, failures=failures,
+                  seconds=time.perf_counter() - t_start)
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(card, flush=True)

@@ -4,9 +4,11 @@ The JAX package beside this one is the reference: every module here keeps
 the name of its JAX counterpart, and the tests hold each against it. This
 package imports torch, numpy and the standard library only.
 
-Slice covered: the splat-conditioned flythrough unroll at batch 1
-(`pipeline.scene_generation.InfiniteSceneGeneration`), with hand-written
-CUDA kernels for the z-buffer merge (`ops.zbuffer`) and the codeword search
-(`ops.vq`). Entry points run on `cuda` unless the caller passes
+Slices covered: the splat-conditioned flythrough unroll, for one scene and
+for S scenes at once (`pipeline.scene_generation.InfiniteSceneGeneration`),
+and the two-optimizer GAN training step (`training.train_step`), with
+hand-written CUDA kernels for the z-buffer merge (`ops.zbuffer`), the
+codeword search (`ops.vq`) and the flash attention forward and backward
+(`ops.attention`). Entry points run on `cuda` unless the caller passes
 `device="cpu"`.
 """

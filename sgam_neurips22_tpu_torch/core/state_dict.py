@@ -7,7 +7,7 @@ and OIHW conv kernels, so `load_state_dict` maps one to one.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -58,6 +58,29 @@ def load_into(model: nn.Module, state_dict: Dict[str, Any]) -> nn.Module:
         tensors[k] = t.to(own[k].dtype)
     model.load_state_dict(tensors, strict=True)
     return model
+
+
+def load_jax_training(
+    model: nn.Module,
+    disc: nn.Module,
+    params: Dict[str, Any],
+    disc_params: Dict[str, Any],
+    disc_state: Dict[str, Any],
+    lpips: Optional[nn.Module] = None,
+    lpips_params: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Carry the JAX training state (numpy leaves) into the port's modules,
+    strictly: `params` (the JAX `create_train_state(...)["params"]`) into
+    the VQModel, `disc_params` and `disc_state` (the discriminator's
+    `{"main": [...]}` trees, BatchNorm running statistics in the latter)
+    into the discriminator, and an `init_lpips`-layout
+    `{"convs", "lins"}` tree into the LPIPS module. Tensors are copied into
+    the existing parameters, so optimizers built on them stay valid; their
+    moments are whatever they were (zero before the first step)."""
+    load_into(model, from_jax_params(params))
+    load_into(disc, {**from_jax_params(disc_params), **from_jax_params(disc_state)})
+    if lpips is not None:
+        load_into(lpips, from_jax_params(lpips_params))
 
 
 def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:

@@ -5,13 +5,26 @@
 exactly as in the reference: for the flagship (resolution 64,
 attn_resolutions (16,)) a 256^2 input gets attention at the 64x64 level
 (4096 tokens, C=256) and in the two 16x16 mid blocks (C=512).
+
+With `DDConfig.remat`, each down and up level runs under
+`torch.utils.checkpoint` when gradients are recorded, as the JAX
+`_maybe_remat` wraps each level in `jax.checkpoint`: the policy saves the
+outputs of every convolution (JAX's `save_only_these_names("conv_out")`)
+and recomputes GroupNorm, swish, attention and the rest on the backward
+pass. The mid blocks are not rematerialised, as in JAX.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from sgam_neurips22_tpu_torch.models.vqgan.nn import (
     AttnBlock,
@@ -26,7 +39,7 @@ from sgam_neurips22_tpu_torch.models.vqgan.nn import (
 
 @dataclass(frozen=True)
 class DDConfig:
-    """The reference's ddconfig node (f32, no rematerialisation)."""
+    """The reference's ddconfig node (f32), plus the JAX package's `remat`."""
 
     ch: int = 128
     out_ch: int = 4
@@ -36,6 +49,35 @@ class DDConfig:
     in_channels: int = 4
     resolution: int = 64
     z_channels: int = 256
+    # rematerialise each down/up level on the backward pass, saving only
+    # convolution outputs (JAX DDConfig.remat; numerics are identical)
+    remat: bool = False
+
+
+def _save_convolutions(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _level(level: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """One down or up level: its blocks (each followed by its attention
+    block where the level has them), then its down- or upsampling."""
+    for i_block, block in enumerate(level.block):
+        h = block(h)
+        if len(level.attn):
+            h = level.attn[i_block](h)
+    resample = getattr(level, "downsample", None) or getattr(level, "upsample", None)
+    return h if resample is None else resample(h)
+
+
+def _run_level(level: nn.Module, h: torch.Tensor, remat: bool) -> torch.Tensor:
+    """_level(level, h), rematerialised on the backward pass when `remat` is
+    set and autograd records."""
+    if not (remat and torch.is_grad_enabled()):
+        return _level(level, h)
+    return checkpoint(_level, level, h, use_reentrant=False,
+                      context_fn=partial(create_selective_checkpoint_contexts, _save_convolutions))
 
 
 def _mid(c: int) -> nn.Module:
@@ -77,16 +119,12 @@ class Encoder(nn.Module):
         self.mid = _mid(block_in)
         self.norm_out = GroupNorm(block_in)
         self.conv_out = conv2d(block_in, cfg.z_channels)
+        self.remat = cfg.remat
 
     def forward(self, x):
         h = self.conv_in(x)
         for level in self.down:
-            for i_block, block in enumerate(level.block):
-                h = block(h)
-                if len(level.attn):
-                    h = level.attn[i_block](h)
-            if hasattr(level, "downsample"):
-                h = level.downsample(h)
+            h = _run_level(level, h, self.remat)
         h = _run_mid(self.mid, h)
         return self.conv_out(swish(self.norm_out(h)))
 
@@ -118,14 +156,16 @@ class Decoder(nn.Module):
         self.up = nn.ModuleList(up)
         self.norm_out = GroupNorm(block_in)
         self.conv_out = conv2d(block_in, cfg.out_ch)
+        self.remat = cfg.remat
 
-    def forward(self, z):
+    def features(self, z):
+        """Everything before conv_out, up to and including the final
+        norm + swish (JAX `apply_decoder_features`): the adaptive GAN
+        weight differentiates w.r.t. conv_out's kernel alone."""
         h = _run_mid(self.mid, self.conv_in(z))
         for level in reversed(self.up):
-            for i_block, block in enumerate(level.block):
-                h = block(h)
-                if len(level.attn):
-                    h = level.attn[i_block](h)
-            if hasattr(level, "upsample"):
-                h = level.upsample(h)
-        return self.conv_out(swish(self.norm_out(h)))
+            h = _run_level(level, h, self.remat)
+        return swish(self.norm_out(h))
+
+    def forward(self, z):
+        return self.conv_out(self.features(z))

@@ -1,6 +1,7 @@
 """VQModel, the generative sensing module — port of
-`sgam_neurips22_tpu/models/vqgan/model.py` (inference: forward with
-topk None or 1).
+`sgam_neurips22_tpu/models/vqgan/model.py`: forward with topk None or 1,
+and the pieces the training step uses (`decode_features`,
+`get_last_layer`).
 
 Public methods take and return NHWC, as the JAX functions do; the conv
 stack inside runs NCHW. Parameter names are the reference state_dict's:
@@ -10,7 +11,7 @@ quant_conv, post_quant_conv, quantize.embedding.weight.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -22,12 +23,17 @@ from sgam_neurips22_tpu_torch.models.vqgan.quantize import quantize, quantize_to
 
 @dataclass(frozen=True)
 class VQModelConfig:
-    """The conditional-generation model: conv_in folds the extrapolation
-    mask into the input (the reference's use_extrapolation_mask=True)."""
+    """The model with conv_in folding the extrapolation mask into the input
+    (the reference's use_extrapolation_mask=True), and the fields of the
+    JAX `VQModelConfig` that the training step reads."""
 
     ddconfig: DDConfig
     n_embed: int
     embed_dim: int
+    phase: str = "codebook"  # 'codebook' | 'conditional_generation'
+    beta: float = 0.25
+    dataset: str = "clevr-infinite"
+    depth_range: Optional[tuple] = None
 
 
 class ForwardResult(NamedTuple):
@@ -90,12 +96,21 @@ class VQModel(nn.Module):
         """post_quant_conv -> decoder: [B, h, w, D] -> [B, H, W, out_ch]."""
         return _nhwc(self.decoder(self.post_quant_conv(_nchw(quant))))
 
+    def decode_features(self, quant):
+        """Decoder features before its conv_out: [B, h, w, D] -> [B, H, W, ch]
+        (an NHWC view of the NCHW features)."""
+        return _nhwc(self.decoder.features(self.post_quant_conv(_nchw(quant))))
+
+    def get_last_layer(self) -> torch.Tensor:
+        """decoder.conv_out.weight, the anchor of the adaptive GAN weight."""
+        return self.decoder.conv_out.weight
+
     def forward(self, x, extrapolation_mask=None, topk=None, sample_number=1):
         """Encode -> quantise (topk None) or take the argmin (topk 1) ->
         decode; NHWC in and out."""
         pre_quant = self.encode_prequant(x, extrapolation_mask)
         if topk is None:
-            q = quantize(self.codebook, pre_quant)
+            q = quantize(self.codebook, pre_quant, self.cfg.beta)
             return ForwardResult(self.decode(q.z_q), q.loss, q.indices, pre_quant, q.z_q)
         s = quantize_topk(self.codebook, pre_quant, topk, sample_number)
         b, n = s.z_q.shape[:2]

@@ -32,12 +32,13 @@ def group_norm(
 ) -> torch.Tensor:
     """GroupNorm over NCHW with f32 statistics composed from per-channel
     moments (a group's mean is the mean of its channels' means), in the
-    two-pass form E[(x - mean_g)^2] of the JAX package."""
+    two-pass form E[(x - mean_g)^2] of the JAX package (float64 input keeps
+    float64 statistics)."""
     b, c, _, _ = x.shape
     if c % num_groups != 0:
         raise ValueError(f"GroupNorm: channels ({c}) must be divisible by {num_groups}")
     cg = c // num_groups
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     gm = xf.mean(dim=(2, 3)).reshape(b, num_groups, cg).mean(dim=2)  # [B, G]
     d = xf - gm.repeat_interleave(cg, dim=1)[:, :, None, None]
     gv = (d * d).mean(dim=(2, 3)).reshape(b, num_groups, cg).mean(dim=2)

@@ -1,13 +1,24 @@
-"""Single-head flash attention, forward: softmax(q k^T / sqrt(C)) v and the
-per-row logsumexp, for [B, S, C] float32 tensors (the JAX package's layout).
+"""Single-head flash attention: softmax(q k^T / sqrt(C)) v over [B, S, C]
+float32 tensors (the JAX package's layout), forward and backward.
 
-`flash_attention_fwd` launches the CUDA kernel `csrc/flash_attention_fwd.cu`
-for CUDA tensors and runs `flash_attention_plain` for CPU tensors; nothing
-else selects the plain version. It replaces the TPU kernel
-`sgam_neurips22_tpu/ops/attention_pallas.py::_flash_fwd_impl` (see the .cu for
-its design and bound). Both versions scale q by 1/sqrt(C) before the dot, as
-the TPU kernel does. The logsumexp is what the backward pass of training
-recomputes the probabilities from.
+`flash_attention` goes through the `FlashAttention` autograd function on
+every device, as the JAX `flash_attention` carries its custom VJP: the
+forward saves (q, k, v, out, lse) and the backward recomputes the
+probabilities from the row logsumexp.
+
+- `flash_attention_fwd` launches `csrc/flash_attention_fwd.cu` for CUDA
+  tensors (replaces `sgam_neurips22_tpu/ops/attention_pallas.py::
+  _flash_fwd_impl`) and runs `flash_attention_plain` for CPU tensors. Both
+  scale q by 1/sqrt(C) before the dot, as the TPU kernel does.
+- `flash_attention_bwd` launches the two kernels of
+  `csrc/flash_attention_bwd.cu` for CUDA tensors (`flash_attention_dq` and
+  `flash_attention_dkv`, replacing `_dq_kernel` and `_dkv_kernel`) and runs
+  `flash_attention_bwd_plain` for CPU tensors. Both apply the scale after
+  the dot, as the TPU backward kernels do. D = rowsum(dO * O) is plain
+  torch, as it is plain XLA in JAX.
+
+Nothing else selects a plain version: a CUDA tensor launches a kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -17,10 +28,37 @@ import torch
 
 from sgam_neurips22_tpu_torch.ops import cuda_build
 
-KERNEL_CHANNELS = (64, 128, 256, 512)  # the widths the kernel is instantiated for
+KERNEL_CHANNELS = (64, 128, 256, 512)  # the widths the kernels are instantiated for
 _SIGNATURES = {
     "flash_attention_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
+_BWD_SIGNATURES = {
+    "flash_attention_dq_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "flash_attention_dkv_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+
+
+def _check(name: str, *xs: torch.Tensor) -> None:
+    """Same [B, S, C] float32 shape on one device (lse-like [B, S] after)."""
+    q = xs[0]
+    if q.dim() != 3 or any(x.shape != q.shape for x in xs):
+        raise ValueError(f"{name}: {[tuple(x.shape) for x in xs]} must be one [B, S, C] shape")
+    if any(x.dtype != torch.float32 for x in xs):
+        raise TypeError(f"{name} takes float32 tensors")
+    if any(x.device != q.device for x in xs):
+        raise ValueError(f"{name}: tensors on {[str(x.device) for x in xs]}")
+
+
+def _kernel_inputs(name: str, xs) -> None:
+    """What the CUDA kernels take: C in KERNEL_CHANNELS, contiguous, 16-byte aligned."""
+    dev = xs[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    c = xs[0].shape[-1]
+    if c not in KERNEL_CHANNELS:
+        raise ValueError(f"{name}: the kernel takes C in {KERNEL_CHANNELS}, got {c}")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in xs):
+        raise ValueError(f"{name} takes contiguous, 16-byte aligned tensors")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -37,21 +75,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     Returns:
       (out [B, S, C], lse [B, S]) with lse the row logsumexp of q k^T / sqrt(C).
     """
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} must be one [B, S, C] shape")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError("flash_attention_fwd takes float32 q, k and v")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"flash_attention_fwd: q on {q.device}, k on {k.device}, v on {v.device}")
+    _check("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
+    _kernel_inputs("flash_attention_fwd", (q, k, v))
     b, s, c = q.shape
-    if c not in KERNEL_CHANNELS:
-        raise ValueError(f"flash_attention_fwd: the kernel takes C in {KERNEL_CHANNELS}, got {c}")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in (q, k, v)):
-        raise ValueError("flash_attention_fwd takes contiguous, 16-byte aligned q, k and v")
     out = torch.empty_like(q)
     lse = torch.empty((b, s), dtype=torch.float32, device=q.device)
     lib = cuda_build.library("flash_attention_fwd", _SIGNATURES)
@@ -68,6 +96,116 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 flash_attention_fwd.launches = 0
 
 
+def _probs_and_ds(q, k, v, dout, lse, dd):
+    """[B, S, S] P = exp(scale * (q k^T) - lse) and dS = P * (dO v^T - D)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p = torch.exp(scale * torch.bmm(q, k.transpose(1, 2)) - lse[..., None])
+    return p, p * (torch.bmm(dout, v.transpose(1, 2)) - dd[..., None])
+
+
+def flash_attention_dq_plain(q, k, v, dout, lse, dd):
+    """Plain PyTorch version of flash_attention_dq: scale * dS k."""
+    return (1.0 / q.shape[-1] ** 0.5) * torch.bmm(_probs_and_ds(q, k, v, dout, lse, dd)[1], k)
+
+
+def flash_attention_dkv_plain(q, k, v, dout, lse, dd):
+    """Plain PyTorch version of flash_attention_dkv: (scale * dS^T q, P^T dO)."""
+    p, ds = _probs_and_ds(q, k, v, dout, lse, dd)
+    return (1.0 / q.shape[-1] ** 0.5) * torch.bmm(ds.transpose(1, 2), q), torch.bmm(p.transpose(1, 2), dout)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout):
+    """Plain PyTorch version of the backward, with [B, S, S] tensors:
+    logits = scale * (q k^T), P = exp(logits - lse), D = rowsum(dO * O),
+    dS = P * (dO v^T - D), dq = scale * dS k, dk = scale * dS^T q,
+    dv = P^T dO. It forms P and dS once for the three."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p, ds = _probs_and_ds(q, k, v, dout, lse, (dout * out).sum(dim=-1))
+    dq = scale * torch.bmm(ds, k)
+    return dq, scale * torch.bmm(ds.transpose(1, 2), q), torch.bmm(p.transpose(1, 2), dout)
+
+
+def _rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
+    for r in rows:
+        if r.shape != q.shape[:2] or r.dtype != torch.float32 or r.device != q.device:
+            raise ValueError(f"{name}: row tensor {tuple(r.shape)} {r.dtype} on {r.device} "
+                             f"is not float32 {tuple(q.shape[:2])} on {q.device}")
+
+
+def flash_attention_dq(q, k, v, dout, lse, dd):
+    """dq of attention from the kernel `flash_dq_kernel` (CUDA tensors only).
+    dd is rowsum(dout * out), [B, S] like lse."""
+    _check("flash_attention_dq", q, k, v, dout)
+    _rows("flash_attention_dq", q, lse, dd)
+    _kernel_inputs("flash_attention_dq", (q, k, v, dout, lse, dd))
+    b, s, c = q.shape
+    dq = torch.empty_like(q)
+    lib = cuda_build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_attention_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+            dq.data_ptr(), b, s, c, stream,
+        )
+    cuda_build.check(rc, "flash_attention_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, dout, lse, dd):
+    """(dk, dv) of attention from the kernel `flash_dkv_kernel` (CUDA
+    tensors only); arguments as flash_attention_dq."""
+    _check("flash_attention_dkv", q, k, v, dout)
+    _rows("flash_attention_dkv", q, lse, dd)
+    _kernel_inputs("flash_attention_dkv", (q, k, v, dout, lse, dd))
+    b, s, c = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = cuda_build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_attention_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, c, stream,
+        )
+    cuda_build.check(rc, "flash_attention_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout):
+    """Attention backward: (dq, dk, dv) for the upstream gradient dout of
+    out = flash_attention(q, k, v), from the forward's (out, lse)."""
+    _check("flash_attention_bwd", q, k, v, out, dout)
+    _rows("flash_attention_bwd", q, lse)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    dd = (dout * out).sum(dim=-1)
+    return (flash_attention_dq(q, k, v, dout, lse, dd), *flash_attention_dkv(q, k, v, dout, lse, dd))
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q k^T / sqrt(C)) v with the flash-attention backward: the JAX
+    `_flash_attention` custom VJP (residuals q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, lse, dout.contiguous())
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(C)) v for single-head [B, S, C] tensors."""
-    return flash_attention_fwd(q, k, v)[0]
+    """softmax(q k^T / sqrt(C)) v for single-head [B, S, C] tensors,
+    differentiable through `FlashAttention`."""
+    return FlashAttention.apply(q, k, v)

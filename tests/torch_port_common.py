@@ -33,9 +33,10 @@ def port_config(cfg: VQModelConfig) -> t_model.VQModelConfig:
             num_res_blocks=dd.num_res_blocks,
             attn_resolutions=tuple(dd.attn_resolutions),
             in_channels=dd.in_channels, resolution=dd.resolution,
-            z_channels=dd.z_channels,
+            z_channels=dd.z_channels, remat=dd.remat,
         ),
-        n_embed=cfg.n_embed, embed_dim=cfg.embed_dim,
+        n_embed=cfg.n_embed, embed_dim=cfg.embed_dim, phase=cfg.phase, beta=cfg.beta,
+        dataset=cfg.dataset, depth_range=cfg.depth_range,
     )
 
 
@@ -65,3 +66,37 @@ def make_seed():
 def t(x):
     """numpy / JAX array -> CPU torch tensor."""
     return torch.as_tensor(np.asarray(x))
+
+
+def port_train_config(cfg):
+    """The port's TrainConfig for a JAX TrainConfig (no k-means, no
+    accumulation, constant LR)."""
+    import dataclasses
+
+    from sgam_neurips22_tpu_torch.training.losses import LossConfig
+    from sgam_neurips22_tpu_torch.training.train_step import TrainConfig
+
+    return TrainConfig(
+        model=port_config(cfg.model), loss=LossConfig(**dataclasses.asdict(cfg.loss)),
+        learning_rate=cfg.learning_rate,
+    )
+
+
+def port_training(jstate, cfg, lpips_params=None):
+    """(TrainState on the CPU, LPIPS or None) carrying a JAX train state's
+    params, disc_params and disc_state and an init_lpips tree."""
+    from sgam_neurips22_tpu_torch.core.state_dict import load_jax_training
+    from sgam_neurips22_tpu_torch.training.lpips import LPIPS
+    from sgam_neurips22_tpu_torch.training.train_step import create_train_state
+
+    state = create_train_state(port_train_config(cfg), seed=0, device="cpu")
+    lp = None if lpips_params is None else LPIPS()
+    load_jax_training(
+        state.model, state.disc, to_numpy_tree(jstate["params"]), to_numpy_tree(jstate["disc_params"]),
+        to_numpy_tree(jstate["disc_state"]), lp, None if lpips_params is None else to_numpy_tree(lpips_params),
+    )
+    return state, lp
+
+
+def batch_to_torch(batch):
+    return {k: t(v) for k, v in batch.items()}
