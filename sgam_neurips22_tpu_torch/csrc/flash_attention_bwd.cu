@@ -1,59 +1,49 @@
-// Single-head flash-attention backward for [B, S, C] f32 q, k, v and the
-// upstream gradient dO: dq, dk and dv recomputed from the forward's per-row
-// logsumexp, with no [S, S] tensor in device memory. Two kernels:
+// Single-head flash-attention backward, dq, for [B, S, C] f32 q, k, v and the
+// upstream gradient dO: recomputed from the forward's per-row logsumexp,
+// with no [S, S] tensor in device memory.
 //
-//   flash_dq_kernel   replaces sgam_neurips22_tpu/ops/attention_pallas.py::_dq_kernel
-//   flash_dkv_kernel  replaces sgam_neurips22_tpu/ops/attention_pallas.py::_dkv_kernel
+//   flash_dq_kernel  replaces sgam_neurips22_tpu/ops/attention_pallas.py::_dq_kernel
 //
-// With logits = scale * (q k^T) (the scale applied after the dot, as the TPU
-// kernels do), P = exp(logits - lse), dP = dO V^T, D = rowsum(dO * O) (given,
-// computed by the caller) and dS = P * (dP - D):
-//   dq = scale * dS K,   dk = scale * dS^T Q,   dv = P^T dO.
-// The TPU kernels ran grids whose innermost axis runs in order on one core and
-// carried the accumulators in VMEM scratch across it. Blocks on Hopper run in
-// parallel and in no order, so one block owns a tile of rows and loops over
-// the other side's tiles itself:
-//   dQ:   a block owns BQ query rows (64, 32 at C=512; Q, dO, lse and D stay
-//         in shared memory) and loops over 64-key tiles: logits and dP over
-//         32-wide depth slices of K and V, then dS to shared memory, then
-//         acc [BQ, C] += dS K with K streamed in 16 KB row slices.
-//   dK/dV: a block owns BKV key rows (64 at C<=128, 32 at C=256, 16 at
-//         C=512, so that its two [BKV, C] accumulators hold 64 registers a
-//         thread; K and V stay in shared memory) and loops over 64-query
-//         tiles: logits^T and dP^T over 32-wide depth slices of Q and dO,
-//         then P^T and dS^T to shared memory, then dv += P^T dO and
-//         dk += dS^T Q with Q and dO streamed in 16 KB row slices.
+// (dk and dv: flash_attention_dkv.cu.) With logits = scale * (q k^T) (the
+// scale applied after the dot, as the TPU kernel does), P = exp(logits -
+// lse), dP = dO V^T, D = rowsum(dO * O) (given, computed by the caller) and
+// dS = P * (dP - D):
+//   dq = scale * dS K.
+// The TPU kernel ran a grid whose innermost axis runs in order on one core
+// and carried the accumulator in VMEM scratch across it. Blocks on Hopper
+// run in parallel and in no order, so a block owns BQ query rows (64, 32 at
+// C=512; Q, dO, lse and D stay in shared memory) and loops over 64-key
+// tiles itself: logits and dP over 32-wide depth slices of K and V, then dS
+// to shared memory, then acc [BQ, C] += dS K with K streamed in 16 KB row
+// slices.
 // Thread layout as in flash_attention_fwd.cu: 256 threads as 16 x 16
 // (ty, tx); thread (ty, tx) owns tile rows ty*RT + i, logit columns
 // tx + 16*j and float4 accumulator columns tx*4 + 64*j.
-// Ragged S: rows past S load as zero and are not stored; the logit columns
-// past S get P = 0 (keys in dQ, queries in dK/dV: a padded query row's lse
-// means nothing, so its column must be masked, not just zero-loaded).
+// Ragged S: rows past S load as zero and are not stored; the key columns
+// past S get P = 0.
 // The scale multiplies the f32 dot with __fmul_rn, so that the compiler does
 // not fuse it with the lse subtraction into one FMA: the logits round as the
 // TPU kernel's `scale * dot` does.
 //
 // Bound on the H100 at the training step's shapes (B=16), f32 on the CUDA
-// cores (no TF32: the port runs in f32 parity mode), 67 TFLOP/s:
-//   S=4096, C=256: dQ 3 products of 2*B*S^2*C = 412 GFLOP, 6.15 ms;
-//                  dK/dV 4 products, 550 GFLOP, 8.21 ms.
-//   S=256,  C=512: dQ 48 us, dK/dV 64 us.
-// Their inputs (q, k, v, dO, lse, D) and outputs move 268 MB (dQ) or 335 MB
-// (dK/dV) at S=4096, 0.1 ms at 3.35 TB/s: both are compute-bound, so the
-// design is a register-tiled f32 FMA loop, like the forward.
+// cores (no TF32: the port runs in f32 parity mode), 67 TFLOP/s: 3 products
+// of 2*B*S^2*C, 412 GFLOP, 6.15 ms at S=4096, C=256; 48 us at S=256, C=512.
+// Its inputs (q, k, v, dO, lse, D) and output move 268 MB at S=4096, 0.1 ms
+// at 3.35 TB/s: compute-bound, so the design is a register-tiled f32 FMA
+// loop, like the forward.
 // Resources: see the ptxas line that chip_smoke.py prints (one block an SM
 // is declared, so ptxas may use up to 255 registers a thread; without it
-// the C=64 instances were held to 128 and spilled). Shared memory is
-// above the 48 KB static limit (dQ 181.5 KiB at C=256, dK/dV 132.5 KiB), so
-// every launch raises the dynamic limit on the current device; one block an
-// SM. Later work: wgmma with a 3xTF32 split, TMA, two blocks an SM.
+// the C=64 instance was held to 128 and spilled). Shared memory is above
+// the 48 KB static limit (181.5 KiB at C=256), so every launch raises the
+// dynamic limit on the current device; one block an SM. Later work: the
+// mma.sync 3xTF32 design of flash_attention_dkv.cu, then wgmma and TMA.
 #include <cmath>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BC = 64;  // logit columns per tile: keys in dQ, queries in dK/dV
+constexpr int BC = 64;  // keys per tile
 constexpr int DC = 32;  // depth slice of the logit products
 constexpr int PAD = 4;  // floats of row padding: keeps float4 alignment
 
@@ -229,154 +219,6 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- dK/dV
-template <int C>
-struct DkvTile {
-  static constexpr int BKV = C >= 512 ? 16 : C >= 256 ? 32 : 64;  // key rows per block
-  static constexpr int RT = BKV / 16;                            // rows per thread
-  static constexpr int CG = C / 64;
-  static constexpr int DQ = 4096 / C;         // Q and dO rows per 16 KB slice
-  static constexpr int KS = BKV * (C + PAD);  // K and V, each
-  static constexpr int QS = BC * (DC + PAD);  // Q and dO depth slices, each
-  static constexpr int PS = BKV * (BC + PAD); // P^T and dS^T, each
-  static constexpr int RS = DQ * C;           // Q and dO row slices, each
-  static constexpr int SMEM_BYTES = (2 * KS + 2 * QS + 2 * PS + 2 * RS + 2 * BC) * (int)sizeof(float);
-};
-
-template <int C>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ dd,
-                 float* __restrict__ dk, float* __restrict__ dv, int S, float scale) {
-  using T = DkvTile<C>;
-  constexpr int BKV = T::BKV, RT = T::RT, CG = T::CG, DQ = T::DQ;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [BKV][C + PAD]
-  float* Vs = Ks + T::KS;                       // [BKV][C + PAD]
-  float* Qs = Vs + T::KS;                       // [BC][DC + PAD]
-  float* Os = Qs + T::QS;                       // dO [BC][DC + PAD]
-  float* Pt = Os + T::QS;                       // P^T [BKV][BC + PAD]
-  float* St = Pt + T::PS;                       // dS^T [BKV][BC + PAD]
-  float* Qr = St + T::PS;                       // Q rows [DQ][C]
-  float* Or = Qr + T::RS;                       // dO rows [DQ][C]
-  float* Ls = Or + T::RS;                       // lse of the q tile [BC]
-  float* Ds = Ls + BC;                          // D of the q tile [BC]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * BKV;
-  const long long base = (long long)blockIdx.y * S * C;
-  const long long rbase = (long long)blockIdx.y * S;
-  const float* qb = q + base;
-  const float* ob = dout + base;
-
-  load_tile<BKV, C, C, C + PAD>(Ks, k + base, k0, 0, S);
-  load_tile<BKV, C, C, C + PAD>(Vs, v + base, k0, 0, S);
-  float gk[RT][CG][4], gv[RT][CG][4];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CG; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) gk[i][j][e] = gv[i][j][e] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += BC) {
-    // 1. k.q and v.dO of key rows ty*RT + i against queries q0 + tx + 16*j
-    float s[RT][4], dp[RT][4];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d0 = 0; d0 < C; d0 += DC) {
-      __syncthreads();  // K, V stored / last slice, P^T, dS^T and lse, D reads done
-      load_tile<BC, DC, C, DC + PAD>(Qs, qb, q0, d0, S);
-      load_tile<BC, DC, C, DC + PAD>(Os, ob, q0, d0, S);
-      if (d0 == 0 && tid < BC) {
-        const bool in = q0 + tid < S;
-        Ls[tid] = in ? lse[rbase + q0 + tid] : 0.f;
-        Ds[tid] = in ? dd[rbase + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int d = 0; d < DC; d += 4) {
-        float4 a[RT], w[RT];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          a[i] = ld4(Ks + (ty * RT + i) * (C + PAD) + d0 + d);
-          w[i] = ld4(Vs + (ty * RT + i) * (C + PAD) + d0 + d);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 qv = ld4(Qs + (tx + 16 * j) * (DC + PAD) + d);
-          const float4 ov = ld4(Os + (tx + 16 * j) * (DC + PAD) + d);
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            s[i][j] = dot4(a[i], qv, s[i][j]);
-            dp[i][j] = dot4(w[i], ov, dp[i][j]);
-          }
-        }
-      }
-    }
-
-    // 2. P^T = exp(scale * kq - lse[q]), 0 on queries past S; dS^T = P^T * (dP^T - D[q])
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int row = ty * RT + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float p = q0 + col < S ? expf(__fmul_rn(scale, s[i][j]) - Ls[col]) : 0.f;
-        Pt[row * (BC + PAD) + col] = p;
-        St[row * (BC + PAD) + col] = p * (dp[i][j] - Ds[col]);
-      }
-    }
-
-    // 3. dv += P^T dO and dk += dS^T Q, Q and dO streamed in DQ-row slices
-    for (int r0 = 0; r0 < BC; r0 += DQ) {
-      __syncthreads();  // P^T, dS^T stored / last row slices read
-      load_tile<DQ, C, C, C>(Qr, qb, q0 + r0, 0, S);
-      load_tile<DQ, C, C, C>(Or, ob, q0 + r0, 0, S);
-      __syncthreads();
-#pragma unroll
-      for (int rr = 0; rr < DQ; rr += 4) {
-        float4 p4[RT], s4[RT];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          p4[i] = ld4(Pt + (ty * RT + i) * (BC + PAD) + r0 + rr);
-          s4[i] = ld4(St + (ty * RT + i) * (BC + PAD) + r0 + rr);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-#pragma unroll
-          for (int j = 0; j < CG; ++j) {
-            const float4 o = ld4(Or + (rr + e) * C + tx * 4 + 64 * j);
-            const float4 x = ld4(Qr + (rr + e) * C + tx * 4 + 64 * j);
-#pragma unroll
-            for (int i = 0; i < RT; ++i) {
-              axpy4(comp(p4[i], e), o, gv[i][j]);
-              axpy4(comp(s4[i], e), x, gk[i][j]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int row = k0 + ty * RT + i;
-    if (row >= S) continue;
-    float* dkr = dk + base + (long long)row * C;
-    float* dvr = dv + base + (long long)row * C;
-#pragma unroll
-    for (int j = 0; j < CG; ++j) {
-      st4(dkr + tx * 4 + 64 * j, make_float4(scale * gk[i][j][0], scale * gk[i][j][1],
-                                             scale * gk[i][j][2], scale * gk[i][j][3]));
-      st4(dvr + tx * 4 + 64 * j, make_float4(gv[i][j][0], gv[i][j][1], gv[i][j][2], gv[i][j][3]));
-    }
-  }
-}
-
 // f32(1/sqrt(C)), as JAX rounds its Python-float scale
 float scale_of(int C) { return (float)(1.0 / sqrt((double)C)); }
 
@@ -391,20 +233,6 @@ int launch_dq(const float* q, const float* k, const float* v, const float* dout,
   if (rc != cudaSuccess) return (int)rc;
   dim3 grid((S + T::BQ - 1) / T::BQ, B);
   flash_dq_kernel<C><<<grid, THREADS, T::SMEM_BYTES, stream>>>(q, k, v, dout, lse, dd, dq, S, scale_of(C));
-  return (int)cudaGetLastError();
-}
-
-template <int C>
-int launch_dkv(const float* q, const float* k, const float* v, const float* dout,
-               const float* lse, const float* dd, float* dk, float* dv, int B, int S,
-               cudaStream_t stream) {
-  using T = DkvTile<C>;
-  cudaError_t rc = cudaFuncSetAttribute(
-      flash_dkv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
-  if (rc != cudaSuccess) return (int)rc;
-  dim3 grid((S + T::BKV - 1) / T::BKV, B);
-  flash_dkv_kernel<C><<<grid, THREADS, T::SMEM_BYTES, stream>>>(q, k, v, dout, lse, dd, dk, dv, S,
-                                                                 scale_of(C));
   return (int)cudaGetLastError();
 }
 
@@ -426,24 +254,6 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k, const voi
     case 128: return launch_dq<128>(qf, kf, vf, of, lf, df, gq, B, S, s);
     case 256: return launch_dq<256>(qf, kf, vf, of, lf, df, gq, B, S, s);
     case 512: return launch_dq<512>(qf, kf, vf, of, lf, df, gq, B, S, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// As above, writing dk and dv [B, S, C].
-extern "C" int flash_attention_dkv_launch(const void* q, const void* k, const void* v,
-                                          const void* dout, const void* lse, const void* dd,
-                                          void* dk, void* dv, int B, int S, int C, void* stream) {
-  if (B == 0 || S == 0) return 0;
-  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
-  const float *of = (const float*)dout, *lf = (const float*)lse, *df = (const float*)dd;
-  float *gk = (float*)dk, *gv = (float*)dv;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 64: return launch_dkv<64>(qf, kf, vf, of, lf, df, gk, gv, B, S, s);
-    case 128: return launch_dkv<128>(qf, kf, vf, of, lf, df, gk, gv, B, S, s);
-    case 256: return launch_dkv<256>(qf, kf, vf, of, lf, df, gk, gv, B, S, s);
-    case 512: return launch_dkv<512>(qf, kf, vf, of, lf, df, gk, gv, B, S, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,12 +10,13 @@ probabilities from the row logsumexp.
   tensors (replaces `sgam_neurips22_tpu/ops/attention_pallas.py::
   _flash_fwd_impl`) and runs `flash_attention_plain` for CPU tensors. Both
   scale q by 1/sqrt(C) before the dot, as the TPU kernel does.
-- `flash_attention_bwd` launches the two kernels of
-  `csrc/flash_attention_bwd.cu` for CUDA tensors (`flash_attention_dq` and
-  `flash_attention_dkv`, replacing `_dq_kernel` and `_dkv_kernel`) and runs
-  `flash_attention_bwd_plain` for CPU tensors. Both apply the scale after
-  the dot, as the TPU backward kernels do. D = rowsum(dO * O) is plain
-  torch, as it is plain XLA in JAX.
+- `flash_attention_bwd` launches two kernels for CUDA tensors,
+  `flash_attention_dq` (`csrc/flash_attention_bwd.cu`, replacing
+  `_dq_kernel`, f32 on the CUDA cores) and `flash_attention_dkv`
+  (`csrc/flash_attention_dkv.cu`, replacing `_dkv_kernel`, 3xTF32 on the
+  tensor cores), and runs `flash_attention_bwd_plain` for CPU tensors. Both
+  apply the scale after the dot, as the TPU backward kernels do.
+  D = rowsum(dO * O) is plain torch, as it is plain XLA in JAX.
 
 Nothing else selects a plain version: a CUDA tensor launches a kernel or
 raises.
@@ -32,8 +33,10 @@ KERNEL_CHANNELS = (64, 128, 256, 512)  # the widths the kernels are instantiated
 _SIGNATURES = {
     "flash_attention_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
-_BWD_SIGNATURES = {
+_DQ_SIGNATURES = {
     "flash_attention_dq_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+_DKV_SIGNATURES = {
     "flash_attention_dkv_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
@@ -140,7 +143,7 @@ def flash_attention_dq(q, k, v, dout, lse, dd):
     _kernel_inputs("flash_attention_dq", (q, k, v, dout, lse, dd))
     b, s, c = q.shape
     dq = torch.empty_like(q)
-    lib = cuda_build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    lib = cuda_build.library("flash_attention_bwd", _DQ_SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_dq_launch(
@@ -157,13 +160,15 @@ flash_attention_dq.launches = 0
 
 def flash_attention_dkv(q, k, v, dout, lse, dd):
     """(dk, dv) of attention from the kernel `flash_dkv_kernel` (CUDA
-    tensors only); arguments as flash_attention_dq."""
+    tensors only; 3xTF32 on the tensor cores, within f32 rounding of
+    flash_attention_dkv_plain, not bit-equal to it); arguments as
+    flash_attention_dq."""
     _check("flash_attention_dkv", q, k, v, dout)
     _rows("flash_attention_dkv", q, lse, dd)
     _kernel_inputs("flash_attention_dkv", (q, k, v, dout, lse, dd))
     b, s, c = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = cuda_build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    lib = cuda_build.library("flash_attention_dkv", _DKV_SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_dkv_launch(
