@@ -58,8 +58,8 @@ SEED = 0
 H = W = 256
 FRAMES = 24  # frames generated per unroll: the flythrough grid is (FRAMES + 1) x 1
 SCENES = 8  # scenes of the batched unroll, as bench.py's batched_8_scenes
-FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (2, 300, 128))  # main path x2, ragged S
-BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128))  # training step x2, ragged S
+FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (2, 300, 128), (2, 300, 64))  # main path x2, ragged S x2
+BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64))  # training step x2, ragged S x2
 
 
 def emit(obj) -> None:
@@ -238,11 +238,11 @@ def check_nearest_codeword(torch, model, failures):
 
 def check_flash_attention(torch, failures):
     """The flash-attention kernel against its plain version at the batched
-    unroll's two shapes (5 and 2 launches a step) and at a ragged S=300.
-    Tolerances: out max abs error 1e-4 at the flagship shapes and 2e-5 at
-    (2, 300, 128), the JAX kernel test's; lse 1e-5 relative. The reported
-    times and bound are the (8, 4096, 256) shape's, which takes most of the
-    time; every shape's are under "shapes"."""
+    unroll's two shapes (5 and 2 launches a step) and at a ragged S=300
+    with C=128 and C=64. Tolerances: out max abs error 1e-4 at the
+    flagship shapes and 2e-5 at S=300, the JAX kernel test's; lse 1e-5
+    relative. The reported times and bound are the (8, 4096, 256) shape's,
+    which takes most of the time; every shape's are under "shapes"."""
     from sgam_neurips22_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_plain
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -284,18 +284,18 @@ def check_flash_attention(torch, failures):
 def check_flash_backward(torch, failures) -> list:
     """The two flash-attention backward kernels against their plain versions
     at the training step's two shapes (B=16: 5 and 2 launches a step each)
-    and at a ragged S=300, on the forward's (out, lse) of random q, k, v and
-    a random upstream gradient. Tolerances, the gate for both kernels: each
-    of dq, dk, dv within 1e-4 of that gradient's largest magnitude at the
-    flagship shapes, 3e-5 absolute at (2, 300, 128) (the JAX kernel
-    test's). dQ sums in f32 on the CUDA cores in cuBLAS's order, and its
-    rows say whether it was bit-exact; dK/dV multiplies in 3xTF32 on the
-    tensor cores, so it agrees to f32 rounding, not bit for bit. Bounds
-    from the work of _dq_kernel (3 products of [S, S] x C: 6*B*S^2*C) and
-    _dkv_kernel (4: 8*B*S^2*C) at the f32 rate of the CUDA cores, so that
-    rows compare across kernels and designs; dK/dV also has bound_tc_ms,
-    its three TF32 products per f32 product at the tensor cores' dense
-    rate. The library yardstick is the f32 backward of
+    and at a ragged S=300 with C=128 and C=64, on the forward's (out, lse)
+    of random q, k, v and a random upstream gradient. Tolerances, the gate
+    for both kernels: each of dq, dk, dv within 1e-4 of that gradient's
+    largest magnitude at the flagship shapes, 3e-5 absolute at S=300 (the
+    JAX kernel test's). Both kernels multiply in 3xTF32 on the tensor
+    cores, so they agree with the plain f32 versions to f32 rounding, not
+    bit for bit; each row gives its error as a share of the gate
+    (gate_share). Bounds from the work of _dq_kernel (3 products of [S, S]
+    x C: 6*B*S^2*C) and _dkv_kernel (4: 8*B*S^2*C) at the f32 rate of the
+    CUDA cores, so that rows compare across kernels and designs, and
+    bound_tc_ms, three TF32 products per f32 product at the tensor cores'
+    dense rate. The library yardstick is the f32 backward of
     scaled_dot_product_attention on a graph built beforehand; it computes
     dq, dk and dv at once, so both rows carry its time. The reported times
     and bounds are the (16, 4096, 256) shape's; every shape's are under
@@ -337,16 +337,15 @@ def check_flash_backward(torch, failures) -> list:
             idx = [("dq", "dk", "dv").index(x) for x in grads]
             rows[name].append({
                 "shape": [b, s, c], "ok": ok, "max_abs_err": max(errs[i] for i in idx),
-                "tolerance": max(tols[i] for i in idx),
+                "tolerance": max(tols[i] for i in idx), "gate_share": max(errs[i] / tols[i] for i in idx),
                 **timings(torch, lambda: kernel(q, k, v, dout, lse, dd), lambda: plain(q, k, v, dout, lse, dd),
                           library),
                 "bound_ms": b_ms, "bound_by": b_by,
+                "bound_tc_ms": 3 * 2.0 * products * b * s * s * c / TF32_FLOP_PER_S * 1e3,
             })
-        rows["flash_attention_dq"][-1]["bit_exact"] = errs[0] == 0.0
-        rows["flash_attention_dkv"][-1]["bound_tc_ms"] = 3 * 8.0 * b * s * s * c / TF32_FLOP_PER_S * 1e3
         del q, k, v, dout, out, lse, dd, qg, kg, vg, lib_out, library
     kernels = []
-    for name, line, source in (("flash_attention_dq", 120, "flash_attention_bwd.cu"),
+    for name, line, source in (("flash_attention_dq", 120, "flash_attention_dq.cu"),
                                ("flash_attention_dkv", 155, "flash_attention_dkv.cu")):
         shapes, main = rows[name], rows[name][0]
         kernels.append({
@@ -354,9 +353,9 @@ def check_flash_backward(torch, failures) -> list:
             "source": f"sgam_neurips22_tpu_torch/csrc/{source}",
             "replaces": f"sgam_neurips22_tpu/ops/attention_pallas.py:{line}",
             "ok": all(x["ok"] for x in shapes), "max_abs_err": max(x["max_abs_err"] for x in shapes),
+            "gate_share": max(x["gate_share"] for x in shapes),
             **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
-                                    "library_call_ms", "bound_ms", "bound_by", "bit_exact", "bound_tc_ms")
-               if k in main},
+                                    "library_call_ms", "bound_ms", "bound_by", "bound_tc_ms")},
             "library": "scaled_dot_product_attention backward (dq, dk and dv at once)",
             "shapes": shapes,
         })
@@ -515,9 +514,10 @@ TRAIN_LR = 1e-4  # bench.py bench_train
 
 def train_config(torch, bs: int):
     """The conditional-generation training configuration of `bench.py
-    --config train_conditional` on the flagship model: n_embed 16384,
-    remat, flash attention (the port's AttnBlock takes it at batch >= 2),
-    LossConfig(disc_start=0), LR 1e-4."""
+    --config train_conditional` on the flagship model (phase
+    conditional_generation, n_embed 16384, depth_range (7, 16), as JAX's
+    flagship_config): remat, flash attention (the port's AttnBlock takes
+    it at batch >= 2), LossConfig(disc_start=0), LR 1e-4."""
     import dataclasses
 
     from sgam_neurips22_tpu_torch.serving import flagship_config
@@ -527,8 +527,7 @@ def train_config(torch, bs: int):
     if bs < 2:
         raise ValueError("the training phases run flash attention, which AttnBlock takes at batch >= 2")
     model = flagship_config()
-    model = dataclasses.replace(model, phase="conditional_generation", n_embed=16384,
-                                ddconfig=dataclasses.replace(model.ddconfig, remat=True))
+    model = dataclasses.replace(model, ddconfig=dataclasses.replace(model.ddconfig, remat=True))
     return TrainConfig(model=model, loss=LossConfig(disc_start=0), learning_rate=TRAIN_LR)
 
 
@@ -800,7 +799,7 @@ def main(argv=None) -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    ptxas = cuda_build.build("zbuffer_min", "nearest_codeword", "flash_attention_fwd", "flash_attention_bwd",
+    ptxas = cuda_build.build("zbuffer_min", "nearest_codeword", "flash_attention_fwd", "flash_attention_dq",
                              "flash_attention_dkv")
     secs = time.perf_counter() - t0
     report["build"] = {"seconds": secs, "built": sorted(ptxas), "ptxas": ptxas_summary(ptxas)}

@@ -25,13 +25,9 @@
 //      warp each Q / dO fragment it loads and splits serves twice the
 //      products it would with 16 rows x 128 channels.
 // Every product is mma.sync.aligned.m16n8k8 in TF32 with f32 accumulation,
-// split three ways to keep f32 accuracy: x = big + small with
-// big = cvt.rna.tf32(x) and small = x - big, and a*b = small(a) big(b) +
-// big(a) small(b) + big(a) big(b); the small*small term (2^-22 relative)
-// is dropped. small goes to the tensor core as it is, which reads its top
-// 19 bits (a truncation to TF32): rounding it with a second cvt.rna was
-// slower and no more accurate, since the split is ALU work in every warp
-// that loads an operand. The port runs in f32 parity mode (no TF32 in
+// split three ways to keep f32 accuracy (3xTF32, mma_tf32.cuh: a*b =
+// small(a) big(b) + big(a) small(b) + big(a) big(b) with big = x rounded
+// to TF32 and small = x - big). The port runs in f32 parity mode (no TF32 in
 // cuBLAS or cuDNN), and the split's error stays at the f32 level:
 // tests/test_torch_port_flash_dkv_split.py emulates it on the CPU, and
 // chip_smoke.py holds the kernel to the plain f32 version on the card. The
@@ -70,11 +66,14 @@
 // shared memory (no per-warp loads), with Q and dO split once when staged;
 // TMA; larger slices (fewer __syncthreads a tile), which need shared
 // memory that padding spends and registers the C = 256 instance lacks.
-#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
+
+using namespace mma_tf32;
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int BQ = 64;        // queries a tile
@@ -98,89 +97,6 @@ struct DkvTile {
   static constexpr int SMEM_BYTES =
       (2 * BKV * LDK + 2 * BKV * LDP + 4 * SLICE + 2 * BQ) * (int)sizeof(float);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 4-float matrices, one row address a lane (lanes 8m..8m+7: rows 0-7
-// of matrix m): lane l gets word l % 4 of row l / 4 of each, in r[m]
-__device__ __forceinline__ void ldsm_x4(const float* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !in
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32, the correction terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_big)[4], const uint32_t (&a_small)[4],
-                                     const uint32_t (&b_big)[2], const uint32_t (&b_small)[2]) {
-  mma_tf32(d, a_small, b_big[0], b_big[1]);
-  mma_tf32(d, a_big, b_small[0], b_small[1]);
-  mma_tf32(d, a_big, b_big[0], b_big[1]);
-}
-
-// A fragment (16 x 8, row-major) of rows r0.., columns c0.. of a row-major
-// shared array: lane (g, t) holds [g][t], [g+8][t], [g][t+4], [g+8][t+4]
-template <int LD>
-__device__ __forceinline__ void load_a(const float* s, int r0, int c0, int lane, uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-  uint32_t x[4];
-  ldsm_x4(s + (r0 + lane % 8 + lane / 8 % 2 * 8) * LD + c0 + lane / 16 * 4, x);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split(__uint_as_float(x[e]), big[e], small[e]);
-}
-
-// B fragments (8 x 8) of two n8 tiles with B[k][n] = s[n0 + n][k0 + k]:
-// lane (g, t) holds B[t][g], B[t+4][g] of tile 0 in [0][0..1], of tile 1 in [1][0..1]
-template <int LD>
-__device__ __forceinline__ void load_b2_nk(const float* s, int n0, int k0, int lane, uint32_t (&big)[2][2],
-                                           uint32_t (&small)[2][2]) {
-  uint32_t x[4];
-  ldsm_x4(s + (n0 + lane % 8 + lane / 16 * 8) * LD + k0 + lane / 8 % 2 * 4, x);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split(__uint_as_float(x[e]), big[e / 2][e % 2], small[e / 2][e % 2]);
-}
-
-// B fragment (8 x 8) with B[k][n] = s[k][n0 + n]
-template <int LD>
-__device__ __forceinline__ void load_b_kn(const float* s, int n0, int g, int t, uint32_t (&big)[2],
-                                          uint32_t (&small)[2]) {
-  const float* p = s + t * LD + n0 + g;
-  split(p[0], big[0], small[0]);
-  split(p[4 * LD], big[1], small[1]);
-}
 
 template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -220,13 +136,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* qs = Ring + (i & 1) * 2 * SLICE;
     float* os = qs + SLICE;
     if (j < NS1) {
-      for (int x = tid; x < BQ * DC / 4; x += THREADS) {
-        const int r = x / (DC / 4), c = x % (DC / 4) * 4;
-        const bool in = q0 + r < S;
-        const long long off = in ? (long long)(q0 + r) * C + j * DC + c : 0;
-        cp_async16(qs + r * LDQ1 + c, qb + off, in);
-        cp_async16(os + r * LDQ1 + c, ob + off, in);
-      }
+      cp_async_rows2<BQ, DC, C, LDQ1, THREADS>(qs, qb, os, ob, q0, j * DC, S);
       if (j == 0 && tid < BQ) {
         const bool in = q0 + tid < S;
         const long long off = rbase + (in ? q0 + tid : 0);
@@ -234,25 +144,12 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         cp_async4(Ds + tid, dd + off, in);
       }
     } else {
-      const int row0 = q0 + (j - NS1) * DQ;
-      for (int x = tid; x < DQ * C / 4; x += THREADS) {
-        const int r = x / (C / 4), c = x % (C / 4) * 4;
-        const bool in = row0 + r < S;
-        const long long off = in ? (long long)(row0 + r) * C + c : 0;
-        cp_async16(qs + r * LDR + c, qb + off, in);
-        cp_async16(os + r * LDR + c, ob + off, in);
-      }
+      cp_async_rows2<DQ, C, C, LDR, THREADS>(qs, qb, os, ob, q0 + (j - NS1) * DQ, 0, S);
     }
     cp_async_commit();
   };
 
-  for (int x = tid; x < BKV * C / 4; x += THREADS) {
-    const int r = x / (C / 4), c = x % (C / 4) * 4;
-    const bool in = k0 + r < S;
-    const long long off = in ? (long long)(k0 + r) * C + c : 0;
-    cp_async16(Ks + r * LDK + c, k + base + off, in);
-    cp_async16(Vs + r * LDK + c, v + base + off, in);
-  }
+  cp_async_rows2<BKV, C, C, LDK, THREADS>(Ks, k + base, Vs, v + base, k0, 0, S);
   fetch(0);  // one group with K and V
 
   // wait for slice i, publish it, free the other stage and start slice i + 1 there
@@ -351,9 +248,6 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 }
-
-// f32(1/sqrt(C)), as JAX rounds its Python-float scale
-float scale_of(int C) { return (float)(1.0 / sqrt((double)C)); }
 
 template <int C>
 int launch_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse,

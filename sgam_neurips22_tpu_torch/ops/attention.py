@@ -11,11 +11,11 @@ probabilities from the row logsumexp.
   _flash_fwd_impl`) and runs `flash_attention_plain` for CPU tensors. Both
   scale q by 1/sqrt(C) before the dot, as the TPU kernel does.
 - `flash_attention_bwd` launches two kernels for CUDA tensors,
-  `flash_attention_dq` (`csrc/flash_attention_bwd.cu`, replacing
-  `_dq_kernel`, f32 on the CUDA cores) and `flash_attention_dkv`
-  (`csrc/flash_attention_dkv.cu`, replacing `_dkv_kernel`, 3xTF32 on the
-  tensor cores), and runs `flash_attention_bwd_plain` for CPU tensors. Both
-  apply the scale after the dot, as the TPU backward kernels do.
+  `flash_attention_dq` (`csrc/flash_attention_dq.cu`, replacing
+  `_dq_kernel`) and `flash_attention_dkv` (`csrc/flash_attention_dkv.cu`,
+  replacing `_dkv_kernel`), both 3xTF32 on the tensor cores, and runs
+  `flash_attention_bwd_plain` for CPU tensors. Both apply the scale after
+  the dot, as the TPU backward kernels do.
   D = rowsum(dO * O) is plain torch, as it is plain XLA in JAX.
 
 Nothing else selects a plain version: a CUDA tensor launches a kernel or
@@ -136,14 +136,16 @@ def _rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def flash_attention_dq(q, k, v, dout, lse, dd):
-    """dq of attention from the kernel `flash_dq_kernel` (CUDA tensors only).
-    dd is rowsum(dout * out), [B, S] like lse."""
+    """dq of attention from the kernel `flash_dq_kernel` (CUDA tensors only;
+    3xTF32 on the tensor cores, within f32 rounding of
+    flash_attention_dq_plain, not bit-equal to it). dd is
+    rowsum(dout * out), [B, S] like lse."""
     _check("flash_attention_dq", q, k, v, dout)
     _rows("flash_attention_dq", q, lse, dd)
     _kernel_inputs("flash_attention_dq", (q, k, v, dout, lse, dd))
     b, s, c = q.shape
     dq = torch.empty_like(q)
-    lib = cuda_build.library("flash_attention_bwd", _DQ_SIGNATURES)
+    lib = cuda_build.library("flash_attention_dq", _DQ_SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_dq_launch(
@@ -160,8 +162,7 @@ flash_attention_dq.launches = 0
 
 def flash_attention_dkv(q, k, v, dout, lse, dd):
     """(dk, dv) of attention from the kernel `flash_dkv_kernel` (CUDA
-    tensors only; 3xTF32 on the tensor cores, within f32 rounding of
-    flash_attention_dkv_plain, not bit-equal to it); arguments as
+    tensors only; 3xTF32 like flash_attention_dq); arguments as
     flash_attention_dq."""
     _check("flash_attention_dkv", q, k, v, dout)
     _rows("flash_attention_dkv", q, lse, dd)

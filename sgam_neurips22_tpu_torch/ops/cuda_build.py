@@ -3,14 +3,17 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface, at first use, into `build/` beside this
 package (listed in .gitignore), and loaded with ctypes. The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt.
-Nothing here runs at import time.
+name carries a hash of its source, the `csrc/*.cuh` headers it includes
+and the flags, so an edited source or header is rebuilt, and a header edit
+rebuilds only the kernels that include it. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,7 +43,9 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = sorted(set(re.findall(rb'^#include "(\w+\.cuh)"', src, re.M)))
+    text = b"".join([src, *((CSRC / h.decode()).read_bytes() for h in headers)])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

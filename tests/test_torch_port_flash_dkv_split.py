@@ -1,13 +1,15 @@
-"""The accuracy argument of the dK/dV kernel (`csrc/flash_attention_dkv.cu`)
-on the CPU: a torch emulation of its 3xTF32 arithmetic against the JAX
+"""The accuracy argument of the tensor-core backward kernels, dK/dV
+(`csrc/flash_attention_dkv.cu`) and dQ (`csrc/flash_attention_dq.cu`), on
+the CPU: a torch emulation of their 3xTF32 arithmetic against the JAX
 custom VJP (Pallas kernels in interpret mode), at the tolerances that
-chip_smoke.py holds the kernel to on the card.
+chip_smoke.py holds the kernels to on the card.
 
-The kernel computes every f32 product a*b on the tensor cores as
+Each kernel computes every f32 product a*b on the tensor cores as
 big(a)*big(b) + big(a)*small(b) + small(a)*big(b), summed in f32, with
-big = `cvt.rna.tf32.f32`(x) (round to nearest, ties away: add 0x1000 to
-the bits and clear the low 13) and small = x - big, of which the tensor
-core reads the top 19 bits (clear the low 13). The emulation here is for
+big = x rounded to TF32 to nearest, ties away (`csrc/mma_tf32.cuh` adds
+0x1000 to the bits and clears the low 13, the bits `cvt.rna.tf32.f32`
+gives) and small = x - big, of which the tensor core reads the top 19
+bits (clear the low 13). The emulation here is for
 these tests only; nothing in the port calls it. A 1xTF32 emulation
 (big*big alone) must fail the same gates, which shows that they would
 catch a dropped correction term."""
@@ -18,14 +20,18 @@ import pytest
 import torch
 
 from sgam_neurips22_tpu.ops.attention_pallas import flash_attention as j_flash_attention
-from sgam_neurips22_tpu_torch.ops.attention import flash_attention_dkv_plain, flash_attention_fwd
+from sgam_neurips22_tpu_torch.ops.attention import (
+    flash_attention_dkv_plain,
+    flash_attention_dq_plain,
+    flash_attention_fwd,
+)
 from torch_port_common import t
 
 SHAPES = [(2, 300, 128), (1, 256, 512)]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on float32 bits."""
+    """x rounded to TF32 as the kernels round it (cvt.rna.tf32.f32's bits)."""
     return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
@@ -54,14 +60,32 @@ def dkv_emulated(q, k, v, dout, lse, dd, mm):
     return scale * mm(ds_t, q), mm(p_t, dout)
 
 
-def _case(shape):
+def dq_emulated(q, k, v, dout, lse, dd, mm):
+    """(dq,) as the kernel computes it, each product through mm:
+    logits = scale * (Q K^T), P = exp(logits - lse),
+    dS = P * (dO V^T - D), dq = scale * dS K."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p = torch.exp(scale * mm(q, k.transpose(1, 2)) - lse[..., None])
+    ds = p * (mm(dout, v.transpose(1, 2)) - dd[..., None])
+    return (scale * mm(ds, k),)
+
+
+# gradient -> (its emulation, its plain version, the JAX VJP's outputs it is held to)
+KERNELS = {
+    "dkv": (dkv_emulated, flash_attention_dkv_plain, slice(1, 3)),
+    "dq": (dq_emulated, lambda *a: (flash_attention_dq_plain(*a),), slice(0, 1)),
+}
+
+
+def _case(shape, grad):
     """(q, k, v, dout, lse, dd) on the port's forward, and the JAX custom
-    VJP's (dk, dv) with its Pallas kernels in interpret mode."""
+    VJP's gradients of kernel `grad` with its Pallas kernels in interpret
+    mode."""
     rng = np.random.default_rng(sum(shape) + 5)
     q, k, v, g = (rng.normal(size=shape).astype(np.float32) for _ in range(4))
     fn = lambda a, b, c: j_flash_attention(a, b, c, block_q=128, block_k=128, interpret=True)  # noqa: E731
     _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    ref = [np.asarray(x) for x in vjp(jnp.asarray(g))[1:]]
+    ref = [np.asarray(x) for x in vjp(jnp.asarray(g))[KERNELS[grad][2]]]
     out, lse = flash_attention_fwd(t(q), t(k), t(v))
     dd = (t(g) * out).sum(dim=-1)
     return (t(q), t(k), t(v), t(g), lse, dd), ref
@@ -73,31 +97,35 @@ def _tolerance(shape, ref):
     return 3e-5 if shape[1] == 300 else 1e-4 * float(np.abs(ref).max())
 
 
+@pytest.mark.parametrize("grad", KERNELS)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_3xtf32_split_meets_the_kernel_gate(shape):
-    args, ref = _case(shape)
-    for name, got, r in zip(("dk", "dv"), dkv_emulated(*args, mm_3xtf32), ref):
+def test_3xtf32_split_meets_the_kernel_gate(shape, grad):
+    args, ref = _case(shape, grad)
+    for i, (got, r) in enumerate(zip(KERNELS[grad][0](*args, mm_3xtf32), ref)):
         err = float(np.abs(got.numpy() - r).max())
-        assert err <= _tolerance(shape, r), f"{name}: 3xTF32 error {err} over {_tolerance(shape, r)}"
+        assert err <= _tolerance(shape, r), f"{grad}[{i}]: 3xTF32 error {err} over {_tolerance(shape, r)}"
 
 
+@pytest.mark.parametrize("grad", KERNELS)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_1xtf32_fails_the_kernel_gate(shape):
+def test_1xtf32_fails_the_kernel_gate(shape, grad):
     """The negative control: with the two correction products dropped the
-    error exceeds the gate in dk or dv."""
-    args, ref = _case(shape)
+    error exceeds the gate in one of the kernel's gradients."""
+    args, ref = _case(shape, grad)
     ratios = [float(np.abs(got.numpy() - r).max()) / _tolerance(shape, r)
-              for got, r in zip(dkv_emulated(*args, mm_1xtf32), ref)]
+              for got, r in zip(KERNELS[grad][0](*args, mm_1xtf32), ref)]
     assert max(ratios) > 1.0, f"1xTF32 error / tolerance {ratios}: the gate would not catch it"
 
 
+@pytest.mark.parametrize("grad", KERNELS)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_emulation_in_f32_is_the_plain_version(shape):
-    """With exact f32 products the emulation is flash_attention_dkv_plain,
+def test_emulation_in_f32_is_the_plain_version(shape, grad):
+    """With exact f32 products the emulation is the kernel's plain version,
     so the tests above measure the split alone."""
-    args, _ = _case(shape)
-    for got, plain in zip(dkv_emulated(*args, torch.matmul), flash_attention_dkv_plain(*args)):
-        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    args, _ = _case(shape, grad)
+    emulated, plain, _ = KERNELS[grad]
+    for got, want in zip(emulated(*args, torch.matmul), plain(*args)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_tf32_rounds_to_nearest_ties_away():

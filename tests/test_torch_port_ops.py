@@ -109,3 +109,26 @@ def test_kernel_libraries_are_named_by_source_hash():
         assert path.parent == cuda_build.BUILD_DIR
         assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
         assert (cuda_build.CSRC / f"{name}.cu").is_file()
+
+
+KERNELS = ["zbuffer_min", "nearest_codeword", "flash_attention_fwd", "flash_attention_dq",
+           "flash_attention_dkv"]
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_library_hash_covers_its_headers(name, tmp_path, monkeypatch):
+    """A library is rebuilt when its source or a csrc/*.cuh header that it
+    includes changes, and only then: a header edit leaves the libraries of
+    the kernels that do not include it as they were."""
+    for f in cuda_build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    path = cuda_build.lib_path(name)
+    includes = '#include "mma_tf32.cuh"' in (tmp_path / f"{name}.cu").read_text()
+    assert includes == (name in ("flash_attention_dq", "flash_attention_dkv"))
+    (tmp_path / "mma_tf32.cuh").write_text((tmp_path / "mma_tf32.cuh").read_text() + "\n// edited\n")
+    assert (cuda_build.lib_path(name) != path) == includes
+    (tmp_path / f"{name}.cu").write_text((tmp_path / f"{name}.cu").read_text() + "\n// edited\n")
+    edited = cuda_build.lib_path(name)
+    assert edited != path and edited.name.startswith(f"lib{name}-")

@@ -90,6 +90,31 @@ def test_flagship_layout_matches_jax():
     assert model.codebook.shape == (16384, 256)
 
 
+def test_flagship_config_matches_jax():
+    """Every field of the port's flagship_config (VQModelConfig and its
+    DDConfig) equals the same-named field of JAX's, and JAX's fields that
+    the port does not have hold the values the port hard-codes (f32, the
+    extrapolation mask in conv_in, no dropout; flash attention chosen by
+    the port's AttnBlock from the batch size)."""
+    import dataclasses
+
+    got, want = flagship_config(), j_flagship_config()
+    only_jax = {
+        "model": {"use_extrapolation_mask": True, "vq_step_threshold": 0},
+        "ddconfig": {"dropout": 0.0, "resamp_with_conv": True, "double_z": False,
+                     "compute_dtype": "float32", "flash_attention": None},
+    }
+    for part, ours, theirs in (("model", got, want), ("ddconfig", got.ddconfig, want.ddconfig)):
+        names = {f.name for f in dataclasses.fields(ours)}
+        jax_names = {f.name for f in dataclasses.fields(theirs)}
+        assert names <= jax_names, f"{part}: port-only fields {names - jax_names}"
+        assert jax_names - names == set(only_jax[part]), part
+        for name in sorted(names - {"ddconfig"}):
+            assert getattr(ours, name) == getattr(theirs, name), f"{part}.{name}"
+        for name, value in only_jax[part].items():
+            assert getattr(theirs, name) == value, f"{part}.{name}"
+
+
 def test_random_init_is_seeded():
     model = VQModel(port_config(TINY))
     a, b = random_state_dict(model, 3), random_state_dict(model, 3)
