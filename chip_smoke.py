@@ -58,7 +58,14 @@ SEED = 0
 H = W = 256
 FRAMES = 24  # frames generated per unroll: the flythrough grid is (FRAMES + 1) x 1
 SCENES = 8  # scenes of the batched unroll, as bench.py's batched_8_scenes
-FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (2, 300, 128), (2, 300, 64))  # main path x2, ragged S x2
+# the forward: the main path's two shapes, ragged S, and together every (C,
+# BQ) tile that its launch rule picks on an H100 (BQ 64 / 16, 32 / 16 at C=512);
+# the B=16 ragged shapes run the large tiles with a partial last query block,
+# and at S=280 a last key tile of 24 keys, past which a whole warp's keys lie
+FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (16, 4096, 256), (2, 300, 128), (2, 300, 64), (16, 256, 512),
+                (3, 77, 512), (5, 1000, 512), (2, 300, 256), (16, 1024, 128), (16, 1024, 64), (16, 300, 128),
+                (16, 280, 256), (16, 280, 128), (16, 280, 64))
+FLASH_TILES = {(c, bq) for c in (64, 128, 256, 512) for bq in (16, 32 if c == 512 else 64)}
 BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64))  # training step x2, ragged S x2
 
 
@@ -237,13 +244,29 @@ def check_nearest_codeword(torch, model, failures):
 
 
 def check_flash_attention(torch, failures):
-    """The flash-attention kernel against its plain version at the batched
-    unroll's two shapes (5 and 2 launches a step) and at a ragged S=300
-    with C=128 and C=64. Tolerances: out max abs error 1e-4 at the
-    flagship shapes and 2e-5 at S=300, the JAX kernel test's; lse 1e-5
-    relative. The reported times and bound are the (8, 4096, 256) shape's,
-    which takes most of the time; every shape's are under "shapes"."""
-    from sgam_neurips22_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_plain
+    """The flash-attention forward kernel against its plain version at the
+    batched unroll's two shapes (5 and 2 launches a step), the training
+    step's two ([16, 4096, 256] x10 and [16, 256, 512] x2), ragged S (300,
+    77, 1000, 280, on the small and the large tiles) and further shapes,
+    so that every (C, BQ) tile its launch rule can pick runs (each row
+    gives the block_rows it ran with; the run fails if a tile of
+    FLASH_TILES did not run). Tolerances: out max abs error 1e-4, and 2e-5
+    at S=300, the JAX kernel test's; lse 1e-5 relative. The kernel
+    multiplies in 3xTF32 on the tensor cores, so it agrees with the plain
+    f32 version to f32 rounding, not bit for bit; each row gives the
+    larger of its two errors as a share of its tolerance (gate_share), and
+    the out error of the kernel and of the plain f32 version against the
+    plain version in float64 (f64_max_abs_err, plain_f64_max_abs_err;
+    not gated), which says which of the two is the nearer. Bounds from 2
+    products of 2*B*S^2*C at the f32 rate of the CUDA cores, and bound_tc_ms, three
+    TF32 products per f32 product at the tensor cores' dense rate. The
+    reported times and bounds are the (8, 4096, 256) shape's, which takes
+    most of the time; every shape's are under "shapes"."""
+    from sgam_neurips22_tpu_torch.ops.attention import (
+        flash_attention_fwd,
+        flash_attention_fwd_block_rows,
+        flash_attention_plain,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     shapes, ok = [], True
@@ -254,29 +277,38 @@ def check_flash_attention(torch, failures):
         torch.cuda.synchronize()
         err = float((out - pout).abs().max())
         lse_rel = float(((lse - plse).abs() / plse.abs()).max())
+        ref64 = flash_attention_plain(q.double(), k.double(), v.double())[0]
+        f64_err = [float((x.double() - ref64).abs().max()) for x in (out, pout)]
+        del ref64
         tol = 2e-5 if s == 300 else 1e-4
         ok_s = err <= tol and lse_rel <= 1e-5
         ok &= ok_s
         b_ms, b_by = bound(4 * (4 * b * s * c + b * s), 4.0 * b * s * s * c)
         shapes.append({
-            "shape": [b, s, c], "ok": ok_s, "max_abs_err": err, "out_tol": tol,
-            "lse_max_rel_err": lse_rel, "lse_tol_rel": 1e-5,
+            "shape": [b, s, c], "block_rows": flash_attention_fwd_block_rows(b, s, c, q.device), "ok": ok_s,
+            "max_abs_err": err, "out_tol": tol, "lse_max_rel_err": lse_rel, "lse_tol_rel": 1e-5,
+            "gate_share": max(err / tol, lse_rel / 1e-5),
+            "f64_max_abs_err": f64_err[0], "plain_f64_max_abs_err": f64_err[1],
             **timings(torch, lambda: flash_attention_fwd(q, k, v),
                       lambda: flash_attention_plain(q, k, v),
                       lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": 3 * 4.0 * b * s * s * c / TF32_FLOP_PER_S * 1e3,
         })
         del q, k, v, out, lse, pout, plse
     if not ok:
         failures.append(f"flash_attention_fwd differs from flash_attention_plain: {shapes}")
+    missing = FLASH_TILES - {(x["shape"][2], x["block_rows"]) for x in shapes}
+    if missing:
+        failures.append(f"flash_attention_fwd: no shape ran the (C, BQ) tiles {sorted(missing)}")
     main = shapes[0]
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "sgam_neurips22_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "sgam_neurips22_tpu/ops/attention_pallas.py:81",
-        "ok": ok, "max_abs_err": max(x["max_abs_err"] for x in shapes),
+        "ok": ok and not missing, "max_abs_err": max(x["max_abs_err"] for x in shapes),
+        "gate_share": max(x["gate_share"] for x in shapes),
         **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
-                                "library_call_ms", "bound_ms", "bound_by")},
+                                "library_call_ms", "bound_ms", "bound_by", "bound_tc_ms")},
         "shapes": shapes,
     }
 
@@ -672,8 +704,14 @@ def parity_train(torch, np, failures, bs: int = 2) -> dict:
     a tighter GPU-vs-CPU bound would test the arithmetic, not the port.
     Tensors whose gradient is zero up to f32 noise (below 1e-5 of the
     step's largest gradient: the key biases, which the softmax cancels)
-    only need to stay below that floor."""
+    only need to stay below that floor.
+
+    The card's step runs once more with the forward's plain version in
+    place of its kernel (the backward kernels kept), and that run's log and
+    gradient errors stand beside the card's (plain_fwd_witness, not gated):
+    what the forward kernel's rounding adds to the step's."""
     from sgam_neurips22_tpu_torch.models.vqgan.quantize import nearest_codeword_indices
+    from sgam_neurips22_tpu_torch.ops import attention
     from sgam_neurips22_tpu_torch.training.lpips import random_lpips
     from sgam_neurips22_tpu_torch.training.train_step import (
         create_train_state,
@@ -683,26 +721,31 @@ def parity_train(torch, np, failures, bs: int = 2) -> dict:
     )
 
     cfg = train_config(torch, bs)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        state = create_train_state(cfg, seed=SEED, device=dev)
-        lpips = random_lpips(SEED + 2).to(dev)
-        batch = train_batch(torch, np, bs, dev)
-        with torch.no_grad():
-            x, x_dst, mask = model_inputs(batch, cfg)
-            pre = state.model.encode_prequant(x, mask)
-            idx = nearest_codeword_indices(pre.reshape(-1, pre.shape[-1]), state.model.codebook).cpu()
-        _, logs = train_step(state, batch, lpips, cfg)
-        grads = {n: p.grad.detach().cpu().double() for n, p in split_params(state.model, cfg.phase)[0]}
-        stats = {n: b.detach().cpu() for n, b in state.disc.named_buffers()}
-        runs[dev] = ({k: float(v) for k, v in logs.items()}, idx, grads, stats, time.perf_counter() - t0)
-        del state, lpips, batch, pre
+    kernel_fwd, runs = attention.flash_attention_fwd, {}
+    for run, dev in (("cuda", "cuda"), ("plain_fwd", "cuda"), ("cpu", "cpu")):
+        if run == "plain_fwd":
+            attention.flash_attention_fwd = attention.flash_attention_plain
+        try:
+            t0 = time.perf_counter()
+            state = create_train_state(cfg, seed=SEED, device=dev)
+            lpips = random_lpips(SEED + 2).to(dev)
+            batch = train_batch(torch, np, bs, dev)
+            with torch.no_grad():
+                x, x_dst, mask = model_inputs(batch, cfg)
+                pre = state.model.encode_prequant(x, mask)
+                idx = nearest_codeword_indices(pre.reshape(-1, pre.shape[-1]), state.model.codebook).cpu()
+            _, logs = train_step(state, batch, lpips, cfg)
+            grads = {n: p.grad.detach().cpu().double() for n, p in split_params(state.model, cfg.phase)[0]}
+            stats = {n: b.detach().cpu() for n, b in state.disc.named_buffers()}
+            runs[run] = ({k: float(v) for k, v in logs.items()}, idx, grads, stats, time.perf_counter() - t0)
+            del state, lpips, batch, pre
+        finally:
+            attention.flash_attention_fwd = kernel_fwd
     t0 = time.perf_counter()
     ref = f64_gradients(torch, cfg, x, x_dst, mask)
     f64_s = time.perf_counter() - t0
     (g_logs, g_idx, g_grads, g_stats, g_s), (c_logs, c_idx, c_grads, c_stats, c_s) = runs["cuda"], runs["cpu"]
-
+    w_logs, w_grads = runs["plain_fwd"][0], runs["plain_fwd"][2]
     rtol = {k: 1e-3 if k.endswith("d_weight") else 1e-4 for k in c_logs}
     log_err = {k: abs(g_logs[k] - c_logs[k]) / max(abs(c_logs[k]), 1e-30) for k in c_logs}
     logs_ok = all(abs(g_logs[k] - c_logs[k]) <= rtol[k] * abs(c_logs[k]) + 1e-6 for k in c_logs)
@@ -713,7 +756,7 @@ def parity_train(torch, np, failures, bs: int = 2) -> dict:
     def rel(a, b):
         return {n: float((a[n] - b[n]).abs().max() / b[n].abs().max()) for n in b if n not in noise}
 
-    gpu64, cpu64, gpu_cpu = rel(g_grads, ref), rel(c_grads, ref), rel(g_grads, c_grads)
+    gpu64, cpu64, gpu_cpu, plain_fwd64 = rel(g_grads, ref), rel(c_grads, ref), rel(g_grads, c_grads), rel(w_grads, ref)
     worst = {name: max(d.items(), key=lambda kv: kv[1]) for name, d in
              (("gpu_vs_f64", gpu64), ("cpu_vs_f64", cpu64), ("gpu_vs_cpu", gpu_cpu))}
     grads_ok = noise_ok and worst["gpu_vs_f64"][1] <= 1.5 * worst["cpu_vs_f64"][1] and worst["gpu_vs_cpu"][1] <= 3e-2
@@ -727,6 +770,11 @@ def parity_train(torch, np, failures, bs: int = 2) -> dict:
         "grad_median_cpu_vs_f64": float(np.median(list(cpu64.values()))), "grads_ok": grads_ok,
         "running_stats_max_abs_err": max(float((g_stats[n] - c).abs().max()) for n, c in c_stats.items()),
         "running_stats_ok": stats_ok,
+        "plain_fwd_witness": {
+            "log_rel_err": {k: abs(w_logs[k] - c_logs[k]) / max(abs(c_logs[k]), 1e-30) for k in c_logs},
+            "grad_worst_vs_f64": max(plain_fwd64.items(), key=lambda kv: kv[1]),
+            "grad_median_vs_f64": float(np.median(list(plain_fwd64.values()))),
+        },
     }
     res["ok"] = logs_ok and res["index_agreement"] == 1.0 and grads_ok and stats_ok
     if not res["ok"]:

@@ -1,272 +1,380 @@
 // Single-head flash-attention forward: out = softmax(q k^T / sqrt(C)) v and
-// the per-row logsumexp, for [B, S, C] f32 q, k, v. No [S, S] tensor
-// reaches device memory.
+// the per-row logsumexp, for [B, S, C] f32 q, k, v, on Hopper's tensor
+// cores with a 3xTF32 split:
 //
-// Replaces the TPU kernel
-// sgam_neurips22_tpu/ops/attention_pallas.py::_flash_fwd_impl (_flash_kernel).
-// That kernel ran a (batch, q tile, k tile) grid whose k axis runs in order
-// on one core, carrying the online-softmax state (acc, m, l) in VMEM scratch
-// from one k step to the next. Blocks on Hopper run in parallel and in no
-// order, so here one block owns a tile of query rows and loops over the K/V
-// tiles itself, with acc in registers and (m, l) in shared memory.
+//   flash_fwd_kernel  replaces sgam_neurips22_tpu/ops/attention_pallas.py::_flash_fwd_impl
+//                     (kernel body _flash_kernel)
 //
-// Bound on the H100 at the batched unroll's shapes (B=8 scenes), f32 on the
-// CUDA cores (no TF32: the port runs in f32 parity mode):
-//   S=4096, C=256: 4*B*S^2*C = 137.4 GFLOP, 2.05 ms at 67 TFLOP/s; its
-//                  134 MB of q, k, v and out take 40 us at 3.35 TB/s.
-//   S=256,  C=512: 1.07 GFLOP, 16 us.
-// Both are compute-bound, so the design is a register-tiled f32 FMA loop.
+// No [S, S] tensor reaches device memory. The TPU kernel ran a (batch, q
+// tile, k tile) grid whose k axis runs in order on one core, carrying the
+// online-softmax state (acc, m, l) in VMEM from one k step to the next.
+// Blocks on Hopper run in parallel and in no order, so here a block owns BQ
+// query rows and loops over 64-key tiles itself. The block's rows of q,
+// scaled by 1/sqrt(C) before the dot as the TPU kernel scales them, stay in
+// shared memory for the block's life, split once into their TF32 big and
+// small halves. A tile has two phases, as the dQ kernel
+// (flash_attention_dq.cu), whose loop this mirrors with one product fewer:
+//   1. logits = Q K^T of the block's rows against the tile, over depth
+//      slices of K (128 wide, 64 at C = 64): warp w owns 16 query rows and
+//      64 / WPR keys (WPR = warps a 16-row group: 2 at BQ = 64, 4 at 32, 8
+//      at 16). Then the online softmax: keys past S get -inf; the row max
+//      and row sum are reduced over the 4 lanes of a quad with shuffles and
+//      over the WPR warps of a row group through a small shared array; m_new
+//      = max(m, tile max), alpha = exp(m - m_new), l = l alpha + sum P and
+//      P = exp(logits - m_new) go to shared memory ([BQ][64 + 4]): the
+//      accumulator layout of mma is not its A-operand layout, and (m, l,
+//      alpha) of a row live in shared memory because phase 2 maps rows to
+//      warps differently. Every tile holds a key below S, so m_new is finite
+//      and the first tile's alpha is exp(-inf) = 0, never a NaN.
+//   2. part = P V over row slices of V (64 keys at C <= 128, 32 at C = 256,
+//      16 at C = 512; 8 keys an mma k-step): warp w owns 16 MT query rows
+//      (MT = 2 m16 tiles, 1 at BQ = 16) and C / WPC channels. part starts
+//      from zero each tile, and acc = acc alpha + part: the rescale that the
+//      online softmax needs anyway makes the sum two-level, so the sum over
+//      S is S / 64 rounded f32 adds, not 3 S / 8 tensor-core accumulations
+//      (the dQ kernel's finding: 37% -> 11% of its gate at S = 4096).
+// Every product is mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh): the port runs
+// in f32 parity mode, so there is no 1xTF32 shortcut. Operands come from
+// shared memory by ldmatrix (the A fragments of Q and P, the B fragments of
+// the K depth slices read as [key][depth]) or, for the [key][channel] B
+// operand V, by 32-bit loads, and are split in registers (Q was split when
+// staged). Row strides keep a warp's loads on 32 banks: C + 4 for Q, DC + 4
+// for the depth slices, 68 for P, C + 8 for the V row slices. The K and V
+// slices stream through dQ's two-stage ring filled by cp.async (slice i + 1
+// loads while slice i is used; one __syncthreads a slice publishes a slice
+// and frees the other), which zero-fills rows past S; rows of q past S
+// stage as zero and are not stored. The end divides by max(l, 1e-30) and
+// writes lse = m + log(max(l, 1e-30)), as the TPU kernel does.
 //
-// Design. 256 threads, a 16 x 16 arrangement (ty, tx). A block holds BQ
-// query rows (64, or 32 at C=512 so that the accumulator stays at 64
-// registers a thread), pre-scaled by 1/sqrt(C) as the TPU kernel does, in
-// shared memory for its whole life. For each 64-key tile:
-//   1. logits [BQ, 64]: K is streamed through shared memory in 32-wide
-//      slices of C; thread (ty, tx) owns rows ty*RT + i and key columns
-//      tx + 16*j and reads float4s of Q and K (rows padded by 4 floats, so
-//      the 16 key rows a half-warp reads fall on distinct banks).
-//   2. online softmax: key columns past S are -inf; the row max and the row
-//      sum are reduced over the 16 threads of a row with shuffles, (acc, l)
-//      are rescaled by exp(m_old - m_new), and the probabilities go to
-//      shared memory. (m, l) live in shared memory, not in 2*RT registers
-//      a thread: that keeps the C=256 kernel at 128 registers without
-//      spills, which lets two blocks share an SM.
-//   3. acc [BQ, C] += P V: V rows are streamed in slices of 16 KB; thread
-//      (ty, tx) owns rows ty*RT + i and float4 columns tx*4 + 64*j.
-// Rows of q past S load as zero and are not stored; rows of k and v past S
-// load as zero (so 0-probability keys never meet garbage). The end divides
-// by max(l, 1e-30) and writes lse = m + log(l), as the TPU kernel does.
+// Tile rule (one design, one rule): a block owns BQ = 64 query rows at
+// C <= 256 and 32 at C = 512 (registers: the accumulator and its per-tile
+// part are 2 x 64 a thread at C = 256 and 512), but BQ = 16, one m16 row
+// group (8 warps x 8 keys in phase 1, 8 warps x C / 8 channels in phase
+// 2), when that grid, B ceil(S / 16) blocks, fits on the card's SMs at
+// once. A 16-row block does a quarter or half of the larger block's rows in
+// about 0.8 of its time, so it gains only where its whole grid runs in one
+// wave. On an H100 (132 SMs) the unroll's [8, 256, 512] runs 128 blocks of
+// 16 rows, faster than 64 blocks of 32; the training step's [16, 256, 512]
+// keeps 128 blocks of 32, because 256 blocks of 16 (148 registers and 136
+// KiB of shared memory leave one block an SM) run in two waves and were
+// slower (PERF.md). flash_attention_fwd_block_rows reports the rule's
+// choice.
 //
-// Resources (nvcc -Xptxas -v, sm_90a): 128 registers at C=256 and C=128,
-// 136 at C=512, 112 at C=64, no spills. Shared memory 107.5 KiB a block at
-// C=256 (two blocks an SM) and 98.25 KiB at C=512 (one block: registers),
-// above the 48 KB static limit, so every launch raises its dynamic limit
-// on the current device. Capping registers at 128 for two blocks at C=512 spills.
-// Not filling the card at S=256: B=8 gives 64 blocks for 132 SMs.
-// Later work: wgmma with a 3xTF32 split, TMA, double-buffered K/V tiles.
+// Bound on the H100 at the batched unroll's shapes (B = 8 scenes): 2
+// products of 2 B S^2 C. [8, 4096, 256]: 137.4 GFLOP, 2.05 ms as f32 on
+// the CUDA cores (67 TFLOP/s), 0.83 ms as 3xTF32 on the tensor cores (3 x
+// 137.4 GFLOP at 495 TFLOP/s dense); q, k, v and out move 134 MB, 0.04 ms
+// at 3.35 TB/s. [8, 256, 512]: 1.07 GFLOP, 16.0 us f32 and 6.5 us 3xTF32.
+// Both are compute-bound. Measured (chip_smoke.py, device time, NVIDIA
+// H100 80GB HBM3, 700.00 W): 2.507 ms at [8, 4096, 256] (the f32 FMA
+// kernel it replaces took 4.81; the plain version 4.408, SDPA 4.108), 33%
+// of the 3xTF32 bound's rate; 0.0434 ms at [8, 256, 512] (plain 0.0584,
+// SDPA 0.0528). As in dQ, the work around the products (operands loaded
+// from shared memory and split in each warp that uses them) holds it above
+// the tensor-core bound.
+// Resources: __launch_bounds__(256, 1), up to 255 registers a thread;
+// ptxas (sm_90a): 225 registers at C = 256 / BQ = 64, 224 at 512 / 32, 148
+// at 512 / 16, 140 at 128 / 64, 118 at 64 / 64, 111 at 256 / 16, 79 at
+// 128 / 16, 72 at 64 / 16, no spills. Shared memory 214.75 KiB at C = 256
+// / BQ = 64 and 204.9 KiB at 512 / 32 (one block an SM), 135.9 KiB at 512 /
+// 16; above the 48 KB static limit, so every launch raises the dynamic
+// limit of the instantiation it launches on the current device.
 #include <cmath>
+#include <cstdint>
 #include <cuda_runtime.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BK = 64;  // keys per tile
-constexpr int DC = 32;  // depth slice of the q.k product
-constexpr int PAD = 4;  // floats of row padding: keeps float4 alignment
+using namespace mma_tf32;
 
-template <int C>
-struct Tile {
-  static constexpr int BQ = C >= 512 ? 32 : 64;  // query rows per block
-  static constexpr int RT = BQ / 16;             // rows per thread
-  static constexpr int CG = C / 64;              // float4 output groups per thread
-  static constexpr int DK = 4096 / C;            // V rows per 16 KB slice
-  static constexpr int QS = BQ * (C + PAD);      // shared floats of each buffer
-  static constexpr int KS = BK * (DC + PAD);
-  static constexpr int PS = BQ * (BK + PAD);
-  static constexpr int VS = DK * C;
-  static constexpr int SMEM_BYTES = (QS + KS + PS + VS + 2 * BQ) * (int)sizeof(float);
+constexpr int THREADS = 256;  // 8 warps
+constexpr int BK = 64;        // keys a tile
+constexpr int LDS = BK + 4;   // P row stride
+
+template <int C, int BQ>
+struct FwdTile {
+  static constexpr int DC = C < 128 ? C : 128;           // depth slice of phase 1
+  static constexpr int DR = C <= 128 ? 64 : 8192 / C;    // V rows of a phase-2 slice
+  static constexpr int LDK = DC + 4;                     // depth-slice row stride
+  static constexpr int LDQ = C + 4;                      // Q row stride
+  static constexpr int LDV = C + 8;                      // V row-slice stride
+  static constexpr int WPR = 8 / (BQ / 16);              // phase 1: warps a 16-row group
+  static constexpr int NT1 = BK / 8 / WPR;               // phase-1 n8 tiles a warp
+  static constexpr int MT = BQ >= 32 ? 2 : 1;            // phase 2: m16 tiles a warp
+  static constexpr int WPC = 8 / (BQ / (16 * MT));       // phase 2: warps a row group
+  static constexpr int NT2 = C / 8 / WPC;                // phase-2 n8 tiles a warp
+  static constexpr int NS1 = C / DC;                     // depth slices a tile
+  static constexpr int NS = NS1 + BK / DR;               // slices a tile, both phases
+  static constexpr int STAGE = BK * LDK > DR * LDV ? BK * LDK : DR * LDV;  // floats of a ring stage
+  static constexpr int SMEM_BYTES =
+      (2 * BQ * LDQ + BQ * LDS + 2 * STAGE + 3 * BQ + 2 * BQ * WPR) * (int)sizeof(float);
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-template <int C>
-__global__ void __launch_bounds__(THREADS)
+template <int C, int BQ>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int S, float scale) {
-  using T = Tile<C>;
-  constexpr int BQ = T::BQ, RT = T::RT, CG = T::CG, DK = T::DK;
+  using T = FwdTile<C, BQ>;
+  constexpr int DC = T::DC, DR = T::DR, LDK = T::LDK, LDQ = T::LDQ, LDV = T::LDV, WPR = T::WPR;
+  constexpr int NT1 = T::NT1, MT = T::MT, WPC = T::WPC, NT2 = T::NT2, NS1 = T::NS1, NS = T::NS;
+  constexpr int STAGE = T::STAGE;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][C + PAD], scaled
-  float* Ks = Qs + T::QS;                       // [BK][DC + PAD]
-  float* Ps = Ks + T::KS;                       // [BQ][BK + PAD]
-  float* Vs = Ps + T::PS;                       // [DK][C]
-  float* Ms = Vs + T::VS;                       // [BQ] running row max
+  float* Qb = reinterpret_cast<float*>(smem4);  // scale * q [BQ][LDQ]: TF32 big halves
+  float* Qs = Qb + BQ * LDQ;                    // and small halves
+  float* Ps = Qs + BQ * LDQ;                    // P [BQ][LDS]
+  float* Ring = Ps + BQ * LDS;                  // [2 stages][STAGE]
+  float* Ms = Ring + 2 * STAGE;                 // [BQ] running row max
   float* Ls = Ms + BQ;                          // [BQ] running row sum
+  float* As = Ls + BQ;                          // [BQ] alpha of the current tile
+  float* Rm = As + BQ;                          // [BQ][WPR] the warps' tile maxima
+  float* Rl = Rm + BQ * WPR;                    // [BQ][WPR] and sums
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int r1 = (warp / WPR) * 16;          // phase 1: the warp's 16 query rows
+  const int wr = warp % WPR;                 // its place in the row group
+  const int n1 = wr * (BK / WPR);            // and its keys
+  const int r2 = (warp / WPC) * 16 * MT;     // phase 2: its 16 MT query rows
+  const int c2 = (warp % WPC) * (C / WPC);   // and its channels
   const int q0 = blockIdx.x * BQ;
   const long long base = (long long)blockIdx.y * S * C;
-  const float* qb = q + base;
   const float* kb = k + base;
   const float* vb = v + base;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int slices = (S + BK - 1) / BK * NS;
 
-  for (int i = tid; i < BQ * C / 4; i += THREADS) {
-    int r = i / (C / 4), c4 = i % (C / 4);
-    float4 x = zero;
-    if (q0 + r < S) {
-      x = ld4(qb + (long long)(q0 + r) * C + c4 * 4);
-      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
+  // slice i of the stream: key tile i / NS; in it, j = i % NS < NS1 is
+  // depth slice j of the tile's 64 K rows, else row slice j - NS1 of V
+  auto fetch = [&](int i) {
+    const int k0 = i / NS * BK, j = i % NS;
+    float* st = Ring + (i & 1) * STAGE;
+    if (j < NS1) {
+      cp_async_rows<BK, DC, C, LDK, THREADS>(st, kb, k0, j * DC, S);
+    } else {
+      cp_async_rows<DR, C, C, LDV, THREADS>(st, vb, k0 + (j - NS1) * DR, 0, S);
     }
-    st4(Qs + r * (C + PAD) + c4 * 4, x);
-  }
+    cp_async_commit();
+  };
+  fetch(0);
 
+  // stage scale * q (rows past S zero) while the first slice loads
+  for (int x = tid; x < BQ * C / 4; x += THREADS) {
+    const int r = x / (C / 4), c = x % (C / 4) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < S) a = *reinterpret_cast<const float4*>(q + base + (long long)(q0 + r) * C + c);
+    const float e[4] = {a.x * scale, a.y * scale, a.z * scale, a.w * scale};
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) split(e[u], big[u], small[u]);
+    *reinterpret_cast<uint4*>(Qb + r * LDQ + c) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(Qs + r * LDQ + c) = make_uint4(small[0], small[1], small[2], small[3]);
+  }
   if (tid < BQ) {
     Ms[tid] = -INFINITY;
     Ls[tid] = 0.f;
   }
-  float acc[RT][CG][4];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-#pragma unroll
-    for (int j = 0; j < CG; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  }
 
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    // 1. logits of rows ty*RT + i against keys k0 + tx + 16*j
-    float s[RT][4];
+  // wait for slice i, publish it, free the other stage and start slice i + 1 there
+  auto next = [&](int i) -> const float* {
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < slices) fetch(i + 1);
+    return Ring + (i & 1) * STAGE;
+  };
+
+  float acc[MT][NT2][4];
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d0 = 0; d0 < C; d0 += DC) {
-      __syncthreads();  // Q stored / last slice and last P.V reads done
-      for (int i = tid; i < BK * DC / 4; i += THREADS) {
-        int r = i / (DC / 4), c4 = i % (DC / 4);
-        float4 x = zero;
-        if (k0 + r < S) x = ld4(kb + (long long)(k0 + r) * C + d0 + c4 * 4);
-        st4(Ks + r * (DC + PAD) + c4 * 4, x);
-      }
-      __syncthreads();
+    for (int n = 0; n < NT2; ++n)
 #pragma unroll
-      for (int dd = 0; dd < DC; dd += 4) {
-        float4 a[RT];
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  for (int k0 = 0, i = 0; k0 < S; k0 += BK) {
+    // 1. logits of rows r1.. against keys n1.., over depth slices
+    float s[NT1][4];
 #pragma unroll
-        for (int i = 0; i < RT; ++i) a[i] = ld4(Qs + (ty * RT + i) * (C + PAD) + d0 + dd);
+    for (int n = 0; n < NT1; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float4 b = ld4(Ks + (tx + 16 * j) * (DC + PAD) + dd);
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int j = 0; j < NS1; ++j, ++i) {
+      const float* ks = next(i);
 #pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
-            s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
-            s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
-            s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
+      for (int kk = 0; kk < DC; kk += 8) {
+        uint32_t qbig[4], qsmall[4];
+        load_a_presplit<LDQ>(Qb, Qs, r1, j * DC + kk, lane, qbig, qsmall);
+        if constexpr (NT1 == 1) {
+          uint32_t kbig[2], ksmall[2];
+          load_b_nk<LDK>(ks, n1, kk, lane, kbig, ksmall);
+          mma3(s[0], qbig, qsmall, kbig, ksmall);
+        } else {
+#pragma unroll
+          for (int n = 0; n < NT1; n += 2) {
+            uint32_t kbig[2][2], ksmall[2][2];
+            load_b2_nk<LDK>(ks, n1 + 8 * n, kk, lane, kbig, ksmall);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) mma3(s[n + h], qbig, qsmall, kbig[h], ksmall[h]);
           }
         }
       }
     }
 
-    // 2. online softmax over this tile; the 16 threads of a row read its
-    // (m, l) from shared memory and its tx == 0 thread writes them back
+    // online softmax; accumulator lane (g, t) holds rows g, g + 8 (h = 0, 1)
+    // and columns 2t, 2t + 1 of each n8 tile
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int row = ty * RT + i;
-      float mx = -INFINITY;
+    for (int n = 0; n < NT1; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= S) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + n1 + 8 * n + 2 * t + e % 2 >= S) s[n][e] = -INFINITY;
+        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // every tile holds a key < S, so m_new is finite and alpha is 0 on the first tile
-      const float m_old = Ms[row];
-      const float m_new = fmaxf(m_old, mx);
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t == 0) Rm[(r1 + g + 8 * h) * WPR + wr] = mx[h];
+    }
+    __syncthreads();  // every warp's tile maxima
+    float mn[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r1 + g + 8 * h;
+      mn[h] = Ms[row];
+#pragma unroll
+      for (int w = 0; w < WPR; ++w) mn[h] = fmaxf(mn[h], Rm[row * WPR + w]);
+    }
+#pragma unroll
+    for (int n = 0; n < NT1; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = expf(s[n][2 * h] - mn[h]), p1 = expf(s[n][2 * h + 1] - mn[h]);
+        ps[h] += p0 + p1;
+        *reinterpret_cast<float2*>(Ps + (r1 + g + 8 * h) * LDS + n1 + 8 * n + 2 * t) = make_float2(p0, p1);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+      if (t == 0) Rl[(r1 + g + 8 * h) * WPR + wr] = ps[h];
+    }
+    __syncthreads();  // every warp's sums, and every read of Ms
+    if (tid < BQ) {
+      const float m_old = Ms[tid];
+      float m_new = m_old, l = 0.f;
+#pragma unroll
+      for (int w = 0; w < WPR; ++w) {
+        m_new = fmaxf(m_new, Rm[tid * WPR + w]);
+        l += Rl[tid * WPR + w];
+      }
       const float alpha = expf(m_old - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = expf(s[i][j] - m_new);
-        psum += p;
-        Ps[row * (BK + PAD) + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      __syncwarp();  // every lane has read Ms[row] before it changes
-      if (tx == 0) {
-        Ms[row] = m_new;
-        Ls[row] = Ls[row] * alpha + psum;
-      }
-#pragma unroll
-      for (int j = 0; j < CG; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= alpha;
+      Ms[tid] = m_new;
+      Ls[tid] = Ls[tid] * alpha + l;
+      As[tid] = alpha;
     }
 
-    // 3. acc += P V, V streamed in DK-row slices
-    for (int kk0 = 0; kk0 < BK; kk0 += DK) {
-      __syncthreads();  // P stored / last V slice read
-      for (int i = tid; i < DK * C / 4; i += THREADS) {
-        int r = i / (C / 4), c4 = i % (C / 4);
-        float4 x = zero;
-        if (k0 + kk0 + r < S) x = ld4(vb + (long long)(k0 + kk0 + r) * C + c4 * 4);
-        st4(Vs + r * C + c4 * 4, x);
-      }
-      __syncthreads();
+    // 2. part = P V, DR / 8 k-steps of 8 keys a slice; the first slice's
+    // __syncthreads publishes P and the row statistics
+    float part[MT][NT2][4];
 #pragma unroll
-      for (int kk = 0; kk < DK; kk += 4) {
-        float4 p4[RT];
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int i = 0; i < RT; ++i) p4[i] = ld4(Ps + (ty * RT + i) * (BK + PAD) + kk0 + kk);
+      for (int n = 0; n < NT2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
+    for (int j = 0; j < BK / DR; ++j, ++i) {
+      const float* rs = next(i);
 #pragma unroll
-          for (int j = 0; j < CG; ++j) {
-            float4 w = ld4(Vs + (kk + e) * C + tx * 4 + 64 * j);
+      for (int kk = 0; kk < DR; kk += 8) {
+        uint32_t pbig[MT][4], psmall[MT][4];
 #pragma unroll
-            for (int i = 0; i < RT; ++i) {
-              float p = comp(p4[i], e);
-              acc[i][j][0] = fmaf(p, w.x, acc[i][j][0]);
-              acc[i][j][1] = fmaf(p, w.y, acc[i][j][1]);
-              acc[i][j][2] = fmaf(p, w.z, acc[i][j][2]);
-              acc[i][j][3] = fmaf(p, w.w, acc[i][j][3]);
-            }
-          }
+        for (int m = 0; m < MT; ++m) load_a<LDS>(Ps, r2 + 16 * m, j * DR + kk, lane, pbig[m], psmall[m]);
+#pragma unroll
+        for (int n = 0; n < NT2; ++n) {
+          uint32_t vbig[2], vsmall[2];
+          load_b_kn<LDV>(rs + kk * LDV, c2 + 8 * n, g, t, vbig, vsmall);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma3(part[m][n], pbig[m], psmall[m], vbig, vsmall);
         }
       }
     }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float alpha = As[r2 + 16 * m + g + 8 * h];
+#pragma unroll
+        for (int n = 0; n < NT2; ++n)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) acc[m][n][e] = acc[m][n][e] * alpha + part[m][n][e];
+      }
   }
 
-  // the last tile's P.V loop synchronised after (m, l) were written
+  // the last tile's phase 2 synchronised after (m, l) were written
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const float lt = fmaxf(Ls[ty * RT + i], 1e-30f);
-    const float mt = Ms[ty * RT + i];
-    const int row = q0 + ty * RT + i;
-    if (row >= S) continue;
-    float* orow = out + base + (long long)row * C;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < CG; ++j)
-      st4(orow + tx * 4 + 64 * j,
-          make_float4(acc[i][j][0] / lt, acc[i][j][1] / lt, acc[i][j][2] / lt, acc[i][j][3] / lt));
-    if (tx == 0) lse[(long long)blockIdx.y * S + row] = mt + logf(lt);
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int row = r2 + 16 * m + g + 8 * h;
+      if (q0 + row >= S) continue;
+      const float l = fmaxf(Ls[row], 1e-30f);
+      float* o = out + base + (long long)(q0 + row) * C + c2 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT2; ++n)
+        *reinterpret_cast<float2*>(o + 8 * n) = make_float2(acc[m][n][2 * h] / l, acc[m][n][2 * h + 1] / l);
+    }
+  if (tid < BQ && q0 + tid < S)
+    lse[(long long)blockIdx.y * S + q0 + tid] = Ms[tid] + logf(fmaxf(Ls[tid], 1e-30f));
 }
 
-template <int C>
-int launch(const float* q, const float* k, const float* v, float* out,
-           float* lse, int B, int S, cudaStream_t stream) {
-  using T = Tile<C>;
+template <int C, int BQ>
+int launch(const float* q, const float* k, const float* v, float* out, float* lse, int B, int S,
+           cudaStream_t stream) {
+  using T = FwdTile<C, BQ>;
   // the dynamic shared-memory limit is a property of the function on the
   // current device: set it on every launch, so each device gets it
   cudaError_t rc = cudaFuncSetAttribute(
-      flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+      flash_fwd_kernel<C, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (rc != cudaSuccess) return (int)rc;
-  dim3 grid((S + T::BQ - 1) / T::BQ, B);
-  flash_fwd_kernel<C><<<grid, THREADS, T::SMEM_BYTES, stream>>>(
-      q, k, v, out, lse, S, (float)(1.0 / sqrt((double)C)));  // f32(1/sqrt(C)), as JAX rounds it
+  dim3 grid((S + BQ - 1) / BQ, B);
+  flash_fwd_kernel<C, BQ><<<grid, THREADS, T::SMEM_BYTES, stream>>>(q, k, v, out, lse, S, scale_of(C));
   return (int)cudaGetLastError();
+}
+
+// the tile rule on the current device: BQ = 16 when its whole grid fits
+// on the device's SMs at once, else the larger tile
+int block_rows(int B, int S, int C, int* bq) {
+  static int sms[64];  // SM count of each device, read once
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    rc = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const int big = C >= 512 ? 32 : 64;
+  *bq = (long long)B * ((S + 15) / 16) <= sms[dev] ? 16 : big;
+  return 0;
+}
+
+template <int C>
+int launch_c(const float* q, const float* k, const float* v, float* out, float* lse, int B, int S,
+             cudaStream_t stream) {
+  constexpr int BIG = C >= 512 ? 32 : 64;
+  int bq = 0;
+  const int rc = block_rows(B, S, C, &bq);
+  if (rc != 0) return rc;
+  return bq == BIG ? launch<C, BIG>(q, k, v, out, lse, B, S, stream)
+                   : launch<C, 16>(q, k, v, out, lse, B, S, stream);
 }
 
 }  // namespace
 
 // q, k, v, out [B, S, C] f32 row-major, 16-byte aligned; lse [B, S] f32.
 // C is one of 64, 128, 256, 512 (cudaErrorInvalidValue otherwise).
-// Everything on `stream`.
+// Everything on `stream`, on the current device.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out, void* lse,
                                           int B, int S, int C, void* stream) {
@@ -275,10 +383,17 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   float *of = (float*)out, *lf = (float*)lse;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 64: return launch<64>(qf, kf, vf, of, lf, B, S, s);
-    case 128: return launch<128>(qf, kf, vf, of, lf, B, S, s);
-    case 256: return launch<256>(qf, kf, vf, of, lf, B, S, s);
-    case 512: return launch<512>(qf, kf, vf, of, lf, B, S, s);
+    case 64: return launch_c<64>(qf, kf, vf, of, lf, B, S, s);
+    case 128: return launch_c<128>(qf, kf, vf, of, lf, B, S, s);
+    case 256: return launch_c<256>(qf, kf, vf, of, lf, B, S, s);
+    case 512: return launch_c<512>(qf, kf, vf, of, lf, B, S, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The query rows a block that flash_attention_fwd_launch takes for
+// [B, S, C] on the current device, in *bq (the tile rule above).
+extern "C" int flash_attention_fwd_block_rows(int B, int S, int C, int* bq) {
+  if (C != 64 && C != 128 && C != 256 && C != 512) return (int)cudaErrorInvalidValue;
+  return block_rows(B, S, C, bq);
 }

@@ -1,5 +1,6 @@
-// Building blocks of the tensor-core attention backward kernels
-// (flash_attention_dq.cu, flash_attention_dkv.cu): cp.async copies into
+// Building blocks of the tensor-core attention kernels, the forward
+// (flash_attention_fwd.cu) and the backward (flash_attention_dq.cu,
+// flash_attention_dkv.cu): cp.async copies into
 // shared memory, ldmatrix fragment loads, and mma.sync.aligned.m16n8k8 in
 // TF32 with f32 accumulation, split three ways to keep f32 accuracy.
 //
@@ -11,7 +12,9 @@
 // in every warp that loads an operand, so it is kept cheap: big is rounded
 // with an integer add and mask (cvt.rna gives the same bits, but dQ and
 // dK/dV took about 12% longer with it), and small is not rounded again (a
-// second rounding was slower and no more accurate).
+// second rounding was slower and no more accurate). An operand that many
+// warps read may be split once and stored as its two halves
+// (load_a_presplit).
 // tests/test_torch_port_flash_dkv_split.py emulates this arithmetic on the
 // CPU.
 //
@@ -30,6 +33,12 @@ namespace mma_tf32 {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two 8 x 4-float matrices (the row addresses of lanes 0-15), as ldsm_x4
+__device__ __forceinline__ void ldsm_x2(const float* p, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
 }
 
 // four 8 x 4-float matrices, one row address a lane (lanes 8m..8m+7: rows 0-7
@@ -115,6 +124,26 @@ __device__ __forceinline__ void load_a(const float* s, int r0, int c0, int lane,
   ldsm_x4(s + (r0 + lane % 8 + lane / 8 % 2 * 8) * LD + c0 + lane / 16 * 4, x);
 #pragma unroll
   for (int e = 0; e < 4; ++e) split(__uint_as_float(x[e]), big[e], small[e]);
+}
+
+// the same A fragment from two arrays that hold the operand's TF32 big and
+// small halves already
+template <int LD>
+__device__ __forceinline__ void load_a_presplit(const float* big_s, const float* small_s, int r0, int c0, int lane,
+                                                uint32_t (&big)[4], uint32_t (&small)[4]) {
+  const int off = (r0 + lane % 8 + lane / 8 % 2 * 8) * LD + c0 + lane / 16 * 4;
+  ldsm_x4(big_s + off, big);
+  ldsm_x4(small_s + off, small);
+}
+
+// B fragment (8 x 8) of one n8 tile with B[k][n] = s[n0 + n][k0 + k]
+template <int LD>
+__device__ __forceinline__ void load_b_nk(const float* s, int n0, int k0, int lane, uint32_t (&big)[2],
+                                          uint32_t (&small)[2]) {
+  uint32_t x[2];
+  ldsm_x2(s + (n0 + lane % 8) * LD + k0 + lane / 8 % 2 * 4, x);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) split(__uint_as_float(x[e]), big[e], small[e]);
 }
 
 // B fragments (8 x 8) of two n8 tiles with B[k][n] = s[n0 + n][k0 + k]:

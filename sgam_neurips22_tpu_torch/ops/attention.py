@@ -8,8 +8,11 @@ probabilities from the row logsumexp.
 
 - `flash_attention_fwd` launches `csrc/flash_attention_fwd.cu` for CUDA
   tensors (replaces `sgam_neurips22_tpu/ops/attention_pallas.py::
-  _flash_fwd_impl`) and runs `flash_attention_plain` for CPU tensors. Both
-  scale q by 1/sqrt(C) before the dot, as the TPU kernel does.
+  _flash_fwd_impl`; 3xTF32 on the tensor cores, with a tile of 64 query
+  rows, 32 at C = 512, or 16 where the larger tile leaves SMs idle:
+  `flash_attention_fwd_block_rows`) and runs `flash_attention_plain` for
+  CPU tensors. Both scale q by 1/sqrt(C) before the dot, as the TPU kernel
+  does.
 - `flash_attention_bwd` launches two kernels for CUDA tensors,
   `flash_attention_dq` (`csrc/flash_attention_dq.cu`, replacing
   `_dq_kernel`) and `flash_attention_dkv` (`csrc/flash_attention_dkv.cu`,
@@ -32,6 +35,7 @@ from sgam_neurips22_tpu_torch.ops import cuda_build
 KERNEL_CHANNELS = (64, 128, 256, 512)  # the widths the kernels are instantiated for
 _SIGNATURES = {
     "flash_attention_fwd_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "flash_attention_fwd_block_rows": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
 }
 _DQ_SIGNATURES = {
     "flash_attention_dq_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -71,7 +75,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Attention forward over single-head tensors.
+    """Attention forward over single-head tensors; on CUDA tensors the
+    kernel `flash_fwd_kernel` (3xTF32 on the tensor cores, within f32
+    rounding of flash_attention_plain, not bit-equal to it).
 
     Args:
       q, k, v: [B, S, C] float32, one device.
@@ -97,6 +103,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_fwd_block_rows(b: int, s: int, c: int, device) -> int:
+    """The query rows a block of `flash_fwd_kernel` owns for [b, s, c]
+    inputs on CUDA `device`: the kernel's own tile rule, asked of the
+    library (nothing is launched)."""
+    lib = cuda_build.library("flash_attention_fwd", _SIGNATURES)
+    bq = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.flash_attention_fwd_block_rows(b, s, c, ctypes.byref(bq))
+    cuda_build.check(rc, "flash_attention_fwd_block_rows")
+    return bq.value
 
 
 def _probs_and_ds(q, k, v, dout, lse, dd):
