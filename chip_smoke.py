@@ -6,8 +6,11 @@
 From the repository root. It builds the port's CUDA kernels from csrc/
 (five sources, five kernels), holds each against its plain PyTorch version
 on the card at the shapes the paths launch it at and times both (and the
-one-call library equivalent), then drives the port's three paths with the
-flagship clevr-infinite model (seeded random weights):
+one-call library equivalent; the codeword search at P = 256, 2048 and 4096
+and the codebook phase's P = K = 2048, and also on a clustered codebook
+against float64 and on exact ties, see check_nearest_codeword), then
+drives the port's three paths with the flagship clevr-infinite model
+(seeded random weights):
 
 - unroll: one scene's flythrough through
   `InfiniteSceneGeneration.scene_expansion` (batch 1, plain attention),
@@ -66,6 +69,13 @@ FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (16, 4096, 256), (2, 300, 128), (
                 (3, 77, 512), (5, 1000, 512), (2, 300, 256), (16, 1024, 128), (16, 1024, 64), (16, 300, 128),
                 (16, 280, 256), (16, 280, 128), (16, 280, 64))
 FLASH_TILES = {(c, bq) for c in (64, 128, 256, 512) for bq in (16, 32 if c == 512 else 64)}
+# the codeword search: latents P of the batch-1 unroll, the 8-scene unroll
+# and the training step (K=16384); the codebook phase's (P, K); the
+# clustered case's P; identical codeword pairs of the exact-tie case
+VQ_P = (256, SCENES * 256, 4096)
+VQ_CODEBOOK_PHASE_P, VQ_CODEBOOK_PHASE_K = 2048, 2048
+VQ_CLUSTERED_P = 2048
+VQ_TIES = ((100, 9000), (130, 250), (16, 19))
 BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64))  # training step x2, ragged S x2
 
 
@@ -193,52 +203,107 @@ def check_zbuffer(torch, np, gen, failures):
     }
 
 
-def check_nearest_codeword(torch, model, failures):
-    """The codeword search against its plain version at the batch-1
-    unroll's P=256 rows and the batched unroll's P=8*256 (another K-split
-    grid): distances at rtol 1e-5, indices equal but at f32 near-ties. The
-    reported times and bound are P=256's; every shape's are under "shapes"."""
+def near_ties_ok(torch, z, cb, idx, ref_idx) -> tuple[int, bool]:
+    """(rows whose indices differ, whether every one is an f32 near-tie):
+    the two codewords' exact (f64) scores e2 - 2 z.e within 1e-6 of the
+    scale of their f32 sums."""
+    rows = torch.nonzero(idx != ref_idx).flatten()
+    if len(rows) == 0:
+        return 0, True
+    z64 = z[rows].double()
+    a, b = (cb[i[rows].long()].double() for i in (idx, ref_idx))
+    score = [(e * e).sum(1) - 2 * (z64 * e).sum(1) for e in (a, b)]
+    scale = torch.maximum(*((e * e).sum(1) + 2 * (z64 * e).abs().sum(1) for e in (a, b)))
+    return len(rows), bool(((score[0] - score[1]).abs() <= 1e-6 * scale).all())
+
+
+def distance_gate_share(torch, z, cb, idx, dist) -> float:
+    """The largest error of a winning distance against the float64
+    ||z - e_idx||^2, as a share of its gate 1e-6 (||z||^2 + ||e_idx||^2 +
+    2 sum |z e_idx|): the scale of the f32 sums that make the distance."""
+    z64, e64 = z.double(), cb[idx.long()].double()
+    ref = ((z64 - e64) ** 2).sum(1)
+    scale = (z64 * z64).sum(1) + (e64 * e64).sum(1) + 2 * (z64 * e64).abs().sum(1)
+    return float(((dist.double() - ref).abs() / (1e-6 * scale)).max())
+
+
+def check_nearest_codeword(torch, codebook, failures):
+    """The codeword search against its plain version, on the flagship's
+    seeded init codebook (uniform(-1/K, 1/K), K=16384) at the batch-1
+    unroll's P=256, the 8-scene unroll's P=2048 and the training step's
+    P=4096, and on the codebook phase's (P=2048, a seeded K=2048 init
+    codebook): distances at rtol 1e-5, indices equal but at f32 near-ties.
+    Then two cases a trained codebook poses. Clustered: e ~ N(0, 1)
+    [16384, 256], z = e_j + 0.05 N(0, 1), P=2048, where the distance is a
+    small difference of large terms, so rtol 1e-5 fails f32 itself; each
+    winning distance must lie within 1e-6 (||z||^2 + ||e||^2 + 2 sum |z e|)
+    of the float64 one (gate_share; plain_gate_share is plain f32's, not
+    gated), which a product that drops a 3xTF32 correction term misses.
+    Exact ties: the clustered codebook with identical codewords at 100 and
+    9000 (two K-split ranges), 130 and 250 (one tile, two warps), 16 and 19
+    (one warp), and P=256 rows near each: the smaller index must win. Every
+    init shape is timed with plain and `cdist` + `argmin`; bound_ms is the
+    f32 CUDA-core bound, bound_tc_ms the 3xTF32 one (three TF32 products a
+    product at the tensor cores' dense rate), on every row. The reported
+    times and bounds are P=256's; every case's are under "shapes"."""
     from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword, nearest_codeword_plain
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    cb = model.codebook.detach()  # seeded flagship init, uniform(-1/K, 1/K)
-    k, d = cb.shape
-    e64 = cb.double()
+    dev = codebook.device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cb_init = codebook.detach()
+    d = cb_init.shape[1]
+    k_small = VQ_CODEBOOK_PHASE_K
+    cb_small = (torch.rand((k_small, d), generator=g, device=dev) * 2 - 1) / k_small
+    cb_clustered = torch.randn((cb_init.shape[0], d), generator=g, device=dev)
+
+    def near(cb, rows):
+        return (cb[rows] + 0.05 * torch.randn((len(rows), d), generator=g, device=dev)).contiguous()
+
+    cases = [(f"init P={p}", torch.randn((p, d), generator=g, device=dev), cb_init) for p in VQ_P]
+    cases.append((f"codebook phase P={VQ_CODEBOOK_PHASE_P}",
+                  torch.randn((VQ_CODEBOOK_PHASE_P, d), generator=g, device=dev), cb_small))
+    rows = torch.randint(0, cb_init.shape[0], (VQ_CLUSTERED_P,), generator=g, device=dev)
+    cases.append((f"clustered P={VQ_CLUSTERED_P}", near(cb_clustered, rows), cb_clustered))
+    cb_ties = cb_clustered.clone()
+    for a, b in VQ_TIES:
+        cb_ties[b] = cb_ties[a]
+    want = torch.tensor([a for a, _ in VQ_TIES], device=dev).repeat_interleave(-(-256 // len(VQ_TIES)))[:256]
+    cases.append(("exact ties P=256", near(cb_ties, want), cb_ties))
+
     shapes = []
-    for p in (256, SCENES * 256):
-        z = torch.randn((p, d), generator=g, device=cb.device)
+    for name, z, cb in cases:
+        (p, d), k = z.shape, cb.shape[0]
         idx, dist = nearest_codeword(z, cb)
         pidx, pdist = nearest_codeword_plain(z, cb)
         torch.cuda.synchronize()
-        # an index may differ only at an f32 near-tie: the two codewords' exact
-        # (f64) scores e2 - 2 z.e within 1e-6 of the scale of their f32 sums
-        z64 = z.double()
-        rows = torch.nonzero(idx != pidx).flatten()
-        ties_ok = True
-        for r in rows.tolist():
-            a, b_ = int(idx[r]), int(pidx[r])
-            score = [float(e64[j] @ e64[j] - 2 * z64[r] @ e64[j]) for j in (a, b_)]
-            scale = max(float(e64[j] @ e64[j] + 2 * (z64[r] * e64[j]).abs().sum()) for j in (a, b_))
-            ties_ok &= abs(score[0] - score[1]) <= 1e-6 * scale
-        dist_ok = bool(torch.allclose(dist, pdist, rtol=1e-5, atol=0.0))
-        ok = ties_ok and dist_ok
-        if not ok:
-            failures.append(f"nearest_codeword at P={p}: ties_ok={ties_ok} dist_ok={dist_ok}")
+        mismatches, ties_ok = near_ties_ok(torch, z, cb, idx, pidx)
+        share = distance_gate_share(torch, z, cb, idx, dist)
         b_ms, b_by = bound(4 * (p * d + k * d) + 8 * p, 2.0 * p * k * d)
-        shapes.append({
-            "shape": {"P": p, "K": k, "D": d}, "ok": ok, "index_mismatches": len(rows), "near_ties_ok": ties_ok,
-            "max_abs_err": float((dist - pdist).abs().max()),
-            **timings(torch, lambda: nearest_codeword(z, cb),
-                      lambda: nearest_codeword_plain(z, cb),
-                      lambda: torch.cdist(z, cb).argmin(dim=1)),
-            "bound_ms": b_ms, "bound_by": b_by,
-        })
+        row = {"case": name, "shape": {"P": p, "K": k, "D": d}, "index_mismatches": mismatches,
+               "near_ties_ok": ties_ok, "max_abs_err": float((dist - pdist).abs().max()), "gate_share": share,
+               "plain_gate_share": distance_gate_share(torch, z, cb, pidx, pdist), "bound_ms": b_ms,
+               "bound_by": b_by, "bound_tc_ms": 3 * 2.0 * p * k * d / TF32_FLOP_PER_S * 1e3}
+        if name.startswith("clustered"):
+            row["ok"] = ties_ok and share <= 1.0
+        elif name.startswith("exact ties"):
+            row["smaller_index_mismatches"] = int((idx.long() != want).sum())
+            row["ok"] = row["smaller_index_mismatches"] == 0
+        else:
+            row["dist_ok"] = bool(torch.allclose(dist, pdist, rtol=1e-5, atol=0.0))
+            row["ok"] = ties_ok and row["dist_ok"]
+            row.update(timings(torch, lambda: nearest_codeword(z, cb), lambda: nearest_codeword_plain(z, cb),
+                               lambda: torch.cdist(z, cb).argmin(dim=1)))
+        if not row["ok"]:
+            failures.append(f"nearest_codeword, {name}: {row}")
+        shapes.append(row)
     return {
         "name": "nearest_codeword", "route": "cuda",
         "source": "sgam_neurips22_tpu_torch/csrc/nearest_codeword.cu",
         "replaces": "sgam_neurips22_tpu/ops/vq_pallas.py:117",
         "ok": all(x["ok"] for x in shapes), "max_abs_err": max(x["max_abs_err"] for x in shapes),
-        **{k: v for k, v in shapes[0].items() if k not in ("ok", "max_abs_err")},
+        "gate_share": max(x["gate_share"] for x in shapes if x["case"].startswith("clustered")),
+        **{k: shapes[0][k] for k in ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
+                                     "library_call_ms", "bound_ms", "bound_by", "bound_tc_ms")},
         "shapes": shapes,
     }
 
@@ -440,7 +505,7 @@ KERNEL_GROUPS = (  # profiler kernel name -> layer, first match wins
     ("flash_dq_kernel", "ours: flash_attention_dq"),
     ("flash_dkv_kernel", "ours: flash_attention_dkv"),
     ("zbuffer_min_kernel", "ours: zbuffer_min"),
-    ("search_kernel|sqnorm_kernel|finalize_kernel", "ours: nearest_codeword"),
+    ("search_kernel|finalize_kernel", "ours: nearest_codeword"),
     ("fprop|dgrad|wgrad|cudnn|nchwToNhwc|nhwcToNchw|conv|fft|pointwise_mult_and_sum_complex|gemm_cf32",
      "conv (cuDNN: implicit GEMM, FFT)"),
     ("gemm", "matmul (attention, plain GEMMs)"),
@@ -867,7 +932,7 @@ def main(argv=None) -> int:
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
-    kernels = [check_zbuffer(torch, np, gen, failures), check_nearest_codeword(torch, gen.model, failures),
+    kernels = [check_zbuffer(torch, np, gen, failures), check_nearest_codeword(torch, gen.model.codebook, failures),
                check_flash_attention(torch, failures), *check_flash_backward(torch, failures)]
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "kernels": kernels})
 

@@ -1,8 +1,9 @@
-// Building blocks of the tensor-core attention kernels, the forward
-// (flash_attention_fwd.cu) and the backward (flash_attention_dq.cu,
-// flash_attention_dkv.cu): cp.async copies into
-// shared memory, ldmatrix fragment loads, and mma.sync.aligned.m16n8k8 in
-// TF32 with f32 accumulation, split three ways to keep f32 accuracy.
+// Building blocks of the tensor-core kernels, the attention forward
+// (flash_attention_fwd.cu) and backward (flash_attention_dq.cu,
+// flash_attention_dkv.cu) and the codeword search (nearest_codeword.cu):
+// cp.async copies into shared memory, ldmatrix fragment loads, and
+// mma.sync.aligned.m16n8k8 in TF32 with f32 accumulation, split three ways
+// to keep f32 accuracy.
 //
 // The split: x = big + small with big = x rounded to TF32 (to nearest, ties
 // away, as cvt.rna.tf32.f32 rounds) and small = x - big, and a*b =
@@ -15,8 +16,8 @@
 // second rounding was slower and no more accurate). An operand that many
 // warps read may be split once and stored as its two halves
 // (load_a_presplit).
-// tests/test_torch_port_flash_dkv_split.py emulates this arithmetic on the
-// CPU.
+// tests/test_torch_port_flash_dkv_split.py and test_torch_port_vq_split.py
+// emulate this arithmetic on the CPU.
 //
 // Fragment layouts of m16n8k8 (lane = 4 g + t): A (16 x 8, row-major) lane
 // holds [g][t], [g+8][t], [g][t+4], [g+8][t+4]; B (8 x 8) lane holds [t][g],

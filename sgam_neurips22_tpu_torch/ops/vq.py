@@ -16,7 +16,7 @@ import torch
 from sgam_neurips22_tpu_torch.ops import cuda_build
 
 _SIGNATURES = {
-    "nearest_codeword_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "nearest_codeword_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -34,7 +34,8 @@ def nearest_codeword(z_flat: torch.Tensor, codebook: torch.Tensor):
     """argmin_k ||z - e_k||^2 for each row of z.
 
     Args:
-      z_flat: [P, D] f32 latents; codebook: [K, D] f32.
+      z_flat: [P, D] f32 latents; codebook: [K, D] f32. On the card D is
+        256, the embed_dim of every configuration.
     Returns:
       (indices [P] int32, squared distances [P] f32, ||z||^2 included).
     """
@@ -50,18 +51,21 @@ def nearest_codeword(z_flat: torch.Tensor, codebook: torch.Tensor):
         raise TypeError("nearest_codeword takes float32 z and codebook")
     if not (z_flat.is_contiguous() and codebook.is_contiguous()):
         raise ValueError("nearest_codeword takes contiguous z and codebook")
+    if z_flat.data_ptr() % 16 or codebook.data_ptr() % 16:
+        raise ValueError("nearest_codeword takes 16-byte aligned z and codebook")
     (p, d), k = z_flat.shape, codebook.shape[0]
+    if d != 256:
+        raise ValueError(f"nearest_codeword takes depth 256 (every configuration's embed_dim), not {d}")
     dev = z_flat.device
     idx = torch.empty(p, dtype=torch.int32, device=dev)
     dist = torch.empty(p, dtype=torch.float32, device=dev)
-    e2 = torch.empty(k, dtype=torch.float32, device=dev)
     best = torch.empty(p, dtype=torch.int64, device=dev)
     lib = cuda_build.library("nearest_codeword", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.nearest_codeword_launch(
-            z_flat.data_ptr(), codebook.data_ptr(), e2.data_ptr(), best.data_ptr(),
-            idx.data_ptr(), dist.data_ptr(), p, k, d, stream,
+            z_flat.data_ptr(), codebook.data_ptr(), best.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+            p, k, d, stream,
         )
     cuda_build.check(rc, "nearest_codeword")
     nearest_codeword.launches += 1

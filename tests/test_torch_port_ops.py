@@ -126,7 +126,7 @@ def test_kernel_library_hash_covers_its_headers(name, tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
     path = cuda_build.lib_path(name)
     includes = '#include "mma_tf32.cuh"' in (tmp_path / f"{name}.cu").read_text()
-    assert includes == (name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"))
+    assert includes == (name in ("nearest_codeword", "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"))
     (tmp_path / "mma_tf32.cuh").write_text((tmp_path / "mma_tf32.cuh").read_text() + "\n// edited\n")
     assert (cuda_build.lib_path(name) != path) == includes
     (tmp_path / f"{name}.cu").write_text((tmp_path / f"{name}.cu").read_text() + "\n// edited\n")
