@@ -6,7 +6,10 @@
 From the repository root. It builds the port's CUDA kernels from csrc/
 (five sources, five kernels), holds each against its plain PyTorch version
 on the card at the shapes the paths launch it at and times both (and the
-one-call library equivalent; the codeword search at P = 256, 2048 and 4096
+one-call library equivalent; the z-buffer merge bit-exact at the shape and
+point order of each of its callers, the JAX package's map-requery pool
+splat and google_earth among them, on both of its routes, see
+check_zbuffer; the codeword search at P = 256, 2048 and 4096
 and the codebook phase's P = K = 2048, and also on a clustered codebook
 against float64 and on exact ties, see check_nearest_codeword), then
 drives the port's three paths with the flagship clevr-infinite model
@@ -76,6 +79,15 @@ VQ_P = (256, SCENES * 256, 4096)
 VQ_CODEBOOK_PHASE_P, VQ_CODEBOOK_PHASE_K = 2048, 2048
 VQ_CLUSTERED_P = 2048
 VQ_TIES = ((100, 9000), (130, 250), (16, 19))
+# the z-buffer merge's map-requery pool splat: one call merges 2 sub-chunks of
+# 2^18 slots for each of 8 scenes (sgam_neurips22_tpu/mapping/tsdf.py:123,
+# 139, 929-940); keys carry a 20-bit slot; CLEVR's pool (near, far) from
+# auto_config (depth range (7, 16), sdf_trunc 0.5); ring recycling
+# interleaves runs of POOL_RUN slots
+POOL_ROWS, POOL_P, POOL_IDX_BITS, POOL_RUN, POOL_INVALID = 16, 1 << 18, 20, 256, 0.3
+POOL_NEAR_FAR = (0.8 * 7.0 - 0.5, 1.2 * 16.0 + 0.5)
+ZB_LARGE = 1024  # the side of an image whose window would hold too few rows: the l2 route
+ZB_KERNELS = "zbuffer_tile_kernel|zbuffer_l2_kernel"  # the z-buffer's own kernels in a profile
 BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64))  # training step x2, ragged S x2
 
 
@@ -105,10 +117,13 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = None) -> float:
     """Device time per fn() call: the summed time of every kernel that
-    `iters` calls launched, from torch.profiler, over `iters`. Unlike
-    cuda_ms it leaves out the gaps while the host prepares each launch."""
+    `iters` calls launched (only those whose name matches the regex
+    `match`, if given), from torch.profiler, over `iters`. Unlike cuda_ms
+    it leaves out the gaps while the host prepares each launch."""
+    import re
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,7 +134,8 @@ def device_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and (match is None or re.search(match, ev.key)))
     return us / 1e3 / iters
 
 
@@ -140,66 +156,197 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def splat_keys(torch, np, gen, n_src: int, rng):
-    """(pix, key) of a real flagship splat: n_src random 8-14 depth frames
-    at grid rows 0..n_src-1 projected into row n_src, all sources valid."""
+def projected(torch, np, grid, k, n_src: int, depth_range, rng, dev):
+    """(pix [1, P, 2], z [1, P], valid [1, P]) of n_src frames with depths
+    uniform in depth_range at grid rows 0..n_src-1 projected into row
+    n_src, in source-scanline order (P = n_src * H * W)."""
+    from sgam_neurips22_tpu_torch.geometry.camera import pose_matrix
+    from sgam_neurips22_tpu_torch.geometry.splat import project_points
+
+    t_tgt = grid.w2c(n_src)
+    rel = np.stack([t_tgt @ np.linalg.inv(grid.w2c(i)) for i in range(n_src)]).astype(np.float32)
+    depths = torch.tensor(rng.uniform(*depth_range, (1, n_src, H, W)), dtype=torch.float32, device=dev)
+    ks = torch.tensor(np.tile(np.asarray(k, np.float32), (n_src, 1, 1)), device=dev)
+    src2tgt = pose_matrix(torch.tensor(rel[:, :3, :3], device=dev), torch.tensor(rel[:, :3, 3], device=dev))
+    return project_points(depths, ks[:1], ks[None], src2tgt[None])
+
+
+def pool_keys(torch, pix, z, valid, rng):
+    """(pix, key) of the map-requery pool splat (sgam_neurips22_tpu/mapping/
+    tsdf.py:862-880, 931-940): the uint32 key zq << 20 | slot, zq the 12-bit
+    z over CLEVR's pool range, sign-flipped into int32, so that every key
+    with zq < 2048 is negative; POOL_INVALID of the slots invalid (every
+    point off the image among them), with pixel 0 and key INT32_MAX."""
+    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
+
+    near, far = POOL_NEAR_FAR
+    b, p = z.shape
+    zq = torch.clamp((z - near) / (far - near) * 4095.0, 0, 4095).long()
+    key = ((zq << POOL_IDX_BITS) | torch.arange(p, device=z.device)) ^ 0x80000000
+    key = torch.where(key >= 2**31, key - 2**32, key).to(torch.int32)
+    keep = (1 - POOL_INVALID) / float(valid.float().mean())  # so that POOL_INVALID of all slots are invalid
+    ok = valid & torch.tensor(rng.random((b, p)) < keep, device=z.device)
+    return torch.where(ok, pix, 0), torch.where(ok, key, IMAX)
+
+
+def zbuffer_cases(torch, np, gen, rng) -> dict:
+    """{case: (pix, key, h, w)}, each at the shape and in the point order of
+    one caller of the z-buffer merge (random depths, seeded):
+
+    - flythrough: the batch-1 unroll's splat, 5 clevr sources at grid rows
+      0-4 projected into row 5, depths in (8, 14): [1, 327680];
+    - scenes_8: 8 such splats, the 8-scene unroll: [8, 327680];
+    - train: the training step's, train_batch's n_src 2 with identity
+      poses, so that every point lands on its own pixel and each pixel
+      takes an exact 2-way collision: [16, 131072];
+    - google_earth: 3 sources of the google_earth grid with its intrinsics
+      at 256^2 and depths in (0.1, 4.77), whose forward motion spreads a
+      chunk's points over many target rows: [1, 196608];
+    - pool_coherent: the map-requery pool splat's one call at 8 scenes (2
+      sub-chunks of 2^18 slots each), slots booked in source-scanline
+      order (4 clevr sources a row), keys from pool_keys: [16, 262144];
+    - pool_recycled: the same points with the slots in runs of POOL_RUN,
+      the runs shuffled, as ring recycling leaves them;
+    - large: uniform ids over a ZB_LARGE^2 image, 20% invalid: [1, 2^20],
+      4 MB of winners, 18 times what a block's shared memory holds."""
     from sgam_neurips22_tpu_torch.geometry.camera import pose_matrix
     from sgam_neurips22_tpu_torch.geometry.splat import packed_keys, project_points
+    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
+    from sgam_neurips22_tpu_torch.pipeline.trajectory import prepare_grid
 
     dev = gen.device
-    t_tgt = gen.grid.w2c(n_src)
-    rel = np.stack([t_tgt @ np.linalg.inv(gen.grid.w2c(i)) for i in range(n_src)]).astype(np.float32)
-    depths = torch.tensor(rng.uniform(8, 14, (1, n_src, H, W)), dtype=torch.float32, device=dev)
-    src2tgt = pose_matrix(torch.tensor(rel[:, :3, :3], device=dev), torch.tensor(rel[:, :3, 3], device=dev))
-    ks = gen.ks[:n_src]
-    pix, z, valid = project_points(depths, ks[:1], ks[None], src2tgt[None])
-    return packed_keys(pix, z, valid, W)
+    clevr, clevr_depths = (gen.grid, gen.grid.K), (8, 14)
+    fly = [packed_keys(*projected(torch, np, *clevr, 5, clevr_depths, rng, dev), W) for _ in range(SCENES)]
+    cases = {"flythrough": (*fly[0], H, W), "scenes_8": (*(torch.cat(x) for x in zip(*fly)), H, W)}
+    tb = train_batch(torch, np, TRAIN_BATCH, dev)
+    proj = project_points(tb["src_depths"], tb["Ks"][:, 0], tb["Ks"], pose_matrix(tb["R_rels"], tb["t_rels"]))
+    cases["train"] = (*packed_keys(*proj, W), H, W)
+    ge = prepare_grid("google_earth", (4, 1))
+    cases["google_earth"] = (*packed_keys(*projected(torch, np, ge, ge.K, 3, (0.1, 4.77), rng, dev), W), H, W)
+    rows = [projected(torch, np, *clevr, 4, clevr_depths, rng, dev) for _ in range(POOL_ROWS)]
+    pix, z, valid = (torch.cat(x) for x in zip(*rows))
+    pix = pix[..., 1] * W + pix[..., 0]
+    cases["pool_coherent"] = (*pool_keys(torch, pix, z, valid, rng), H, W)
+    runs = torch.tensor(np.argsort(rng.random((POOL_ROWS, POOL_P // POOL_RUN)), axis=1), device=dev)
+    order = (runs[:, :, None] * POOL_RUN + torch.arange(POOL_RUN, device=dev)).reshape(POOL_ROWS, POOL_P)
+    cases["pool_recycled"] = (*pool_keys(torch, *(x.gather(1, order) for x in (pix, z, valid)), rng), H, W)
+    n = ZB_LARGE * ZB_LARGE
+    lp = torch.tensor(rng.integers(0, n, (1, n)), dtype=torch.int32, device=dev)
+    lk = torch.tensor(rng.integers(-2**31, IMAX, (1, n)), dtype=torch.int32, device=dev)
+    bad = torch.tensor(rng.random((1, n)) < 0.2, device=dev)
+    cases["large"] = (torch.where(bad, 0, lp), torch.where(bad, IMAX, lk), ZB_LARGE, ZB_LARGE)
+    return cases
+
+
+def collision_case(torch, rng, b: int, p: int, dev):
+    """Every point on one of 1024 pixels, 20% invalid, keys over the whole
+    int32 range: about 256 points a pixel at P = 327680."""
+    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
+
+    cp = torch.tensor(rng.integers(0, 1024, (b, p)), dtype=torch.int32, device=dev)
+    ck = torch.tensor(rng.integers(-2**31, IMAX, (b, p)), dtype=torch.int32, device=dev)
+    bad = torch.tensor(rng.random((b, p)) < 0.2, device=dev)
+    return torch.where(bad, 0, cp), torch.where(bad, IMAX, ck)
+
+
+def zbuffer_edge_cases(torch, rng, dev) -> dict:
+    """{case: (pix, key, h, w)} at the edges of the kernel's contract, each
+    at a batch of 1 (the l2 route) and of 8 (the tile route): P not a
+    multiple of 4 (rows off 16-byte alignment; one segment on the tile
+    route), both pointers 4 bytes past 16-byte alignment, the two pointers
+    off by different amounts, ids outside [0, h*w) (dropped), an image
+    whose h*w is odd (on the tile route a window of 202 rows of 253), and
+    keys of -1 beside INT32_MAX (whose bits differ from it in the sign
+    alone)."""
+    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
+
+    def draw(b, p, lo, hi):
+        pix = torch.tensor(rng.integers(lo, hi, (b, p)), dtype=torch.int32, device=dev)
+        key = torch.tensor(rng.integers(-2**31, IMAX, (b, p)), dtype=torch.int32, device=dev)
+        return pix, torch.where(torch.tensor(rng.random((b, p)) < 0.2, device=dev), IMAX, key)
+
+    def offset(x, by):  # the same values at a data pointer `by` int32s past an allocation's
+        out = torch.empty(x.numel() + by, dtype=x.dtype, device=dev)[by:].view(x.shape)
+        return out.copy_(x)
+
+    cases = {}
+    for b in (1, SCENES):
+        flat = draw(b, 5 * H * W + 3, 0, H * W)
+        cases.update({
+            f"ragged_p_b{b}": (*draw(b, 5 * H * W - 1, 0, H * W), H, W),
+            f"offset_both_b{b}": (offset(flat[0], 1), offset(flat[1], 1), H, W),
+            f"offset_differ_b{b}": (offset(flat[0], 1), offset(flat[1], 2), H, W),
+            f"out_of_range_b{b}": (*draw(b, 5 * H * W, -1000, H * W + 1000), H, W),
+            f"odd_image_b{b}": (*draw(b, 5 * 255 * 253, 0, 255 * 253), 255, 253),
+            f"minus_one_b{b}": (flat[0], torch.where(flat[1] < 0, -1, IMAX).to(torch.int32), H, W),
+        })
+    return cases
 
 
 def check_zbuffer(torch, np, gen, failures):
-    """The z-buffer kernel against its plain version, bit-exact, at the
-    batch-1 unroll's shape (pix/key [1, 327680]) and the batched unroll's
-    ([8, 327680], one splat per image): each on a real splat and on a
-    collision-heavy case. The reported times and bound are batch 1's; every
-    shape's are under "shapes"."""
-    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX, zbuffer_min, zbuffer_min_plain
+    """The z-buffer merge against its plain version, bit-exact, at the
+    shape of every caller (zbuffer_cases), each also on a collision-heavy
+    case at its shape (collision_case), and on the contract's edges
+    (zbuffer_edge_cases, not timed). Each row gives the route and launch
+    shape that `zbuffer_plan` picks; the run fails unless every route of
+    ROUTES ran at a timed case ("routes"). Each timed shape gives the
+    device time of the whole call (ms), of the z-buffer's own kernels alone
+    (kernel_only_ms: the call less the INT32_MAX fill), the plain version's
+    and `scatter_reduce` amin's, and the bound: each point's pix and key
+    read once and the image written once. The reported times and bound are
+    the flythrough's; every shape's are under "shapes"."""
+    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX, ROUTES, zbuffer_min, zbuffer_min_plain, zbuffer_plan
 
+    dev = gen.device
     rng = np.random.default_rng(SEED)
-    shapes = []
-    for batch in (1, SCENES):
-        pix, key = (torch.cat(x) for x in zip(*(splat_keys(torch, np, gen, 5, rng) for _ in range(batch))))
+    shapes, edges = [], []
+
+    def exact(pix, key, h, w):
+        out, ref = zbuffer_min(pix, key, h, w), zbuffer_min_plain(pix, key, h, w)
+        torch.cuda.synchronize()
+        return torch.equal(out, ref), int((out.long() - ref.long()).abs().max())
+
+    for name, (pix, key, h, w) in zbuffer_cases(torch, np, gen, rng).items():
         b, p = pix.shape
-        # collision-heavy: every point on one of 1024 pixels, 20% invalid
-        cp = torch.tensor(rng.integers(0, 1024, (b, p)), dtype=torch.int32, device=gen.device)
-        ck = torch.tensor(rng.integers(0, 2**31 - 1, (b, p)), dtype=torch.int32, device=gen.device)
-        invalid = torch.tensor(rng.random((b, p)) < 0.2, device=gen.device)
-        cases = {"splat": (pix, key), "collisions": (torch.where(invalid, 0, cp), torch.where(invalid, IMAX, ck))}
-        err, exact = 0, True
-        for cpix, ckey in cases.values():
-            out, ref = zbuffer_min(cpix, ckey, H, W), zbuffer_min_plain(cpix, ckey, H, W)
-            torch.cuda.synchronize()
-            exact &= torch.equal(out, ref)
-            err = max(err, int((out.long() - ref.long()).abs().max()))
-        base, idx = torch.full((b, H * W), IMAX, dtype=torch.int32, device=gen.device), pix.long()
-        b_ms, b_by = bound(2 * 4 * b * p + 4 * b * H * W, 0)
-        shapes.append({
-            "shape": {"pix": [b, p], "pixels": H * W}, "ok": exact, "bit_exact": exact, "max_abs_err": err,
+        ok_case, err_case = exact(pix, key, h, w)
+        ok_coll, err_coll = exact(*collision_case(torch, rng, b, p, dev), h, w)
+        base, idx = torch.full((b, h * w), IMAX, dtype=torch.int32, device=dev), pix.long()
+        b_ms, b_by = bound(2 * 4 * b * p + 4 * b * h * w, 0)
+        row = {
+            "case": name, "shape": {"pix": [b, p], "pixels": h * w}, **zbuffer_plan(b, p, h, w)._asdict(),
+            "ok": ok_case and ok_coll,
+            "bit_exact": ok_case, "collisions_bit_exact": ok_coll, "max_abs_err": max(err_case, err_coll),
             "valid_points": int((key != IMAX).sum()),
-            **timings(torch, lambda: zbuffer_min(pix, key, H, W),
-                      lambda: zbuffer_min_plain(pix, key, H, W),
+            **timings(torch, lambda: zbuffer_min(pix, key, h, w),
+                      lambda: zbuffer_min_plain(pix, key, h, w),
                       lambda: torch.scatter_reduce(base, 1, idx, key, "amin")),
+            "kernel_only_ms": device_ms(torch, lambda: zbuffer_min(pix, key, h, w), match=ZB_KERNELS),
             "bound_ms": b_ms, "bound_by": b_by,
-        })
-        if not exact:
-            failures.append(f"zbuffer_min differs from zbuffer_min_plain at pix [{b}, {p}]")
-    ok = all(x["ok"] for x in shapes)
+        }
+        row["bound_share"] = b_ms / row["ms"]
+        shapes.append(row)
+        if not row["ok"]:
+            failures.append(f"zbuffer_min differs from zbuffer_min_plain, case {name} at pix [{b}, {p}]: {row}")
+        del pix, key, base, idx
+    for name, (pix, key, h, w) in zbuffer_edge_cases(torch, rng, dev).items():
+        ok, err = exact(pix, key, h, w)
+        edges.append({"case": name, "shape": {"pix": list(pix.shape), "pixels": h * w},
+                      "route": zbuffer_plan(*pix.shape, h, w).route, "ok": ok, "max_abs_err": err})
+        if not ok:
+            failures.append(f"zbuffer_min differs from zbuffer_min_plain, edge case {name}: {edges[-1]}")
+    routes = {r: [x["case"] for x in shapes if x["route"] == r] for r in ROUTES}
+    missing = [r for r, cases in routes.items() if not cases]
+    if missing:
+        failures.append(f"zbuffer_min: no timed case ran the routes {missing}")
+    ok = all(x["ok"] for x in shapes + edges) and not missing
     return {
-        "name": "zbuffer_min", "route": "cuda",
+        "name": "zbuffer_min", "route": "cuda", "routes": routes,
         "source": "sgam_neurips22_tpu_torch/csrc/zbuffer_min.cu",
         "replaces": "sgam_neurips22_tpu/ops/splat_pallas.py:88",
-        "ok": ok, "bit_exact": ok, "max_abs_err": max(x["max_abs_err"] for x in shapes),
-        **{k: v for k, v in shapes[0].items() if k not in ("ok", "bit_exact", "max_abs_err")},
-        "shapes": shapes,
+        "ok": ok, "bit_exact": ok, "max_abs_err": max(x["max_abs_err"] for x in shapes + edges),
+        **{k: v for k, v in shapes[0].items()
+           if k not in ("case", "ok", "bit_exact", "max_abs_err", "route", "parts", "segments", "tile_rows")},
+        "shapes": shapes, "edges": edges,
     }
 
 
@@ -504,7 +651,7 @@ KERNEL_GROUPS = (  # profiler kernel name -> layer, first match wins
     ("flash_fwd_kernel", "ours: flash_attention_fwd"),
     ("flash_dq_kernel", "ours: flash_attention_dq"),
     ("flash_dkv_kernel", "ours: flash_attention_dkv"),
-    ("zbuffer_min_kernel", "ours: zbuffer_min"),
+    (ZB_KERNELS, "ours: zbuffer_min"),
     ("search_kernel|finalize_kernel", "ours: nearest_codeword"),
     ("fprop|dgrad|wgrad|cudnn|nchwToNhwc|nhwcToNchw|conv|fft|pointwise_mult_and_sum_complex|gemm_cf32",
      "conv (cuDNN: implicit GEMM, FFT)"),

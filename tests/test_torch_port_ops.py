@@ -26,22 +26,32 @@ def _xla_zbuffer_min(pix, key, h, w):
 
 
 def _case(name):
-    """The cases of tests/test_ops.py at B=2: (pix, key, h, w)."""
+    """The cases of tests/test_ops.py at B=2: (pix, key, h, w); and two of
+    the port's: the map-requery pool splat's sign-flipped keys
+    (sgam_neurips22_tpu/mapping/tsdf.py:931-940: uint32 zq << 20 | slot,
+    with zq on both sides of 2048, xor 0x80000000 into int32, so both signs
+    occur), and a P that is not a multiple of the kernel's 4-wide loads."""
     rng = np.random.default_rng(5)
     if name == "all_invalid":
         h, w, p = 8, 128, 256
         return np.zeros((B, p), np.int32), np.full((B, p), IMAX, np.int32), h, w
-    h, w, p = 16, 128, 700  # p not a multiple of the TPU kernel's chunk*group
+    h, w, p = 16, 128, 701 if name == "ragged" else 700  # p not a multiple of the TPU kernel's chunk*group
     pix = rng.integers(0, h * w, (B, p), dtype=np.int32)
     if name == "collisions":
         pix[:, :50] = 7  # 50-way collision on one pixel
         pix[1, 50:300] = rng.integers(0, 4, 250)  # dense collisions on 4 pixels
     key = rng.integers(0, 2**30, (B, p), dtype=np.int32)
+    if name == "sign_flipped":
+        pix[:, 100:200] = rng.integers(0, 8, 100)  # negative and positive keys meet on 8 pixels
+        zq = rng.integers(0, 4096, (B, p)).astype(np.uint32)
+        key = ((zq << np.uint32(20)) | np.arange(p, dtype=np.uint32)) ^ np.uint32(0x80000000)
+        key = key.view(np.int32)
+        assert (key < 0).any() and (key >= 0).any()
     valid = rng.random((B, p)) < 0.8
     return np.where(valid, pix, 0), np.where(valid, key, IMAX), h, w
 
 
-@pytest.mark.parametrize("name", ["collisions", "random", "all_invalid"])
+@pytest.mark.parametrize("name", ["collisions", "random", "all_invalid", "sign_flipped", "ragged"])
 def test_zbuffer_plain_bit_exact_vs_jax(name):
     pix, key, h, w = _case(name)
     ours = zbuffer_min(t(pix), t(key), h, w).numpy()
