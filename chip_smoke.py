@@ -1,30 +1,45 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (`sgam_neurips22_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--profile] [--out DIR]
+    python3 chip_smoke.py [--out DIR]
 
 From the repository root. It builds the port's CUDA kernels from csrc/
 (five sources, five kernels), holds each against its plain PyTorch version
 on the card at the shapes the paths launch it at and times both (and the
 one-call library equivalent; the z-buffer merge bit-exact at the shape and
 point order of each of its callers, the JAX package's map-requery pool
-splat and google_earth among them, on both of its routes, see
-check_zbuffer; the codeword search at P = 256, 2048 and 4096
-and the codebook phase's P = K = 2048, and also on a clustered codebook
-against float64 and on exact ties, see check_nearest_codeword), then
-drives the port's three paths with the flagship clevr-infinite model
-(seeded random weights):
+splat, google_earth and the strided splat among them, on both of its
+routes, see check_zbuffer; the codeword search at P = 256, 2048 and 4096,
+the codebook phase's P = K = 2048 and google_earth's K = 4096, and also on
+a clustered codebook against float64 and on exact ties, see
+check_nearest_codeword), holds the splat's two scatter modes
+(nearest_exact, last) on the card bit-exact to the CPU at the flythrough's
+and the 8-scene unroll's points (check_collision_modes), then drives the
+port's paths with the flagship models (seeded random weights). Each unroll phase checks finite frames and
+its kernel launches, and profiles one more call (device time by layer and
+the device's idle share):
 
-- unroll: one scene's flythrough through
-  `InfiniteSceneGeneration.scene_expansion` (batch 1, plain attention),
-  checking that the z-buffer and codeword kernels ran once per frame and
-  the flash-attention kernel never; then one full-width step on the card
-  against the same step on the CPU;
+- unroll: one scene's clevr-infinite flythrough through
+  `InfiniteSceneGeneration.scene_expansion` (batch 1, f32, plain
+  attention): the z-buffer and codeword kernels once per frame, the
+  flash-attention kernel never; then parity, one full-width step on the
+  card against the same step on the CPU;
 - unroll_batched: 8 scenes at once through `scene_expansion_batched`
-  (batch 8, flash attention), checking one z-buffer and one codeword launch
-  per step and 7 flash-attention launches per step, with the device's idle
-  share from a profiled unroll; then one step of 2 scenes on the card
-  against the CPU;
+  (batch 8, flash attention): one z-buffer and one codeword launch and 7
+  flash-attention launches per step; then parity_batched, one step of 2
+  scenes on the card against the CPU;
+- unroll_bf16, unroll_batched_bf16: the same two unrolls with the model
+  in bf16 (bench.py's default --model_dtype), the same launches, the
+  layers beside the f32 unroll's, the batch-1 frames' PSNR against the
+  f32 frames (not gated); each followed by its step on the card against
+  the CPU's bf16 step (parity_bf16, parity_batched_bf16);
+- stride2: the bf16 flythrough with splat_stride 2 (bench.py's
+  flythrough_splat_stride2);
+- topk: a few bf16 frames at topk 4, twice from one torch.Generator seed:
+  the same frames, finite, the z-buffer once a frame and no codeword
+  kernel (the draws use plain distances, as JAX's);
+- google_earth: bench.py --config google_earth, its flagship model in
+  bf16 (codebook 4096), 3 sources, its (24+1) x 1 trajectory;
 - train: the conditional-generation GAN training step as `bench.py
   --config train_conditional` defines it (batch 16, n_src 2, n_embed
   16384, remat, flash attention, disc_start 0, Adam (0.5, 0.9), LPIPS with
@@ -36,14 +51,17 @@ drives the port's three paths with the flagship clevr-infinite model
   parity_train: one step at batch 2 on the card against the same step on
   the CPU (logs, codeword indices, the discriminator's running statistics,
   and every trainable gradient, both devices' also against the step's
-  gradients in float64 on the CPU).
+  gradients in float64 on the CPU);
+- train_bf16: the same step with a bf16 model (train_conditional_bf16),
+  the same launches; then parity_train_bf16, its batch-2 step on the card
+  and on the CPU, each held to the CPU's f32 step at a codebook where no
+  latent changes codeword, and a planted fault (dV zeroed) that must fail.
 
 Each phase prints one JSON line with its seconds; --out DIR also writes the
 details to DIR/chip_smoke.json and nvcc's register report to
 DIR/chip_smoke_ptxas.txt. The last line is {"ok": true, "device": {...}}
 and is printed only when every check passed. It exits non-zero without
-that line when CUDA is unavailable or any check fails. --profile adds a
-torch.profiler pass over one more batch-1 unroll.
+that line when CUDA is unavailable or any check fails.
 """
 from __future__ import annotations
 
@@ -63,6 +81,7 @@ TF32_FLOP_PER_S = 495e12
 SEED = 0
 H = W = 256
 FRAMES = 24  # frames generated per unroll: the flythrough grid is (FRAMES + 1) x 1
+TOPK_FRAMES = 8  # frames of each top-k unroll
 SCENES = 8  # scenes of the batched unroll, as bench.py's batched_8_scenes
 # the forward: the main path's two shapes, ragged S, and together every (C,
 # BQ) tile that its launch rule picks on an H100 (BQ 64 / 16, 32 / 16 at C=512);
@@ -79,6 +98,9 @@ VQ_P = (256, SCENES * 256, 4096)
 VQ_CODEBOOK_PHASE_P, VQ_CODEBOOK_PHASE_K = 2048, 2048
 VQ_CLUSTERED_P = 2048
 VQ_TIES = ((100, 9000), (130, 250), (16, 19))
+# google_earth's codebook of 4096 at the batch-1 and the 8-scene unroll's P,
+# and its exact-tie pairs (two K-split ranges, one tile, one warp)
+VQ_GE_K, VQ_GE_P, VQ_GE_TIES = 4096, (256, SCENES * 256), ((100, 3000), (130, 250), (16, 19))
 # the z-buffer merge's map-requery pool splat: one call merges 2 sub-chunks of
 # 2^18 slots for each of 8 scenes (sgam_neurips22_tpu/mapping/tsdf.py:123,
 # 139, 929-940); keys carry a 20-bit slot; CLEVR's pool (near, far) from
@@ -88,6 +110,8 @@ POOL_ROWS, POOL_P, POOL_IDX_BITS, POOL_RUN, POOL_INVALID = 16, 1 << 18, 20, 256,
 POOL_NEAR_FAR = (0.8 * 7.0 - 0.5, 1.2 * 16.0 + 0.5)
 ZB_LARGE = 1024  # the side of an image whose window would hold too few rows: the l2 route
 ZB_KERNELS = "zbuffer_tile_kernel|zbuffer_l2_kernel"  # the z-buffer's own kernels in a profile
+# calls whose profiler trace held no device time (device_ms, profile_unroll)
+PROFILER_MISSES: list[str] = []
 BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64))  # training step x2, ragged S x2
 
 
@@ -117,11 +141,15 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = None) -> float:
+def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = None) -> float | None:
     """Device time per fn() call: the summed time of every kernel that
     `iters` calls launched (only those whose name matches the regex
     `match`, if given), from torch.profiler, over `iters`. Unlike cuda_ms
-    it leaves out the gaps while the host prepares each launch."""
+    it leaves out the gaps while the host prepares each launch. A trace
+    that holds no device time at all (the profiler could not trace the
+    card) is taken once more; if that one holds none either, the miss goes
+    into PROFILER_MISSES and the time comes from CUDA events (cuda_ms),
+    or is None where `match` asks for some kernels only."""
     import re
 
     from torch.autograd import DeviceType
@@ -130,24 +158,30 @@ def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = N
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and (match is None or re.search(match, ev.key)))
-    return us / 1e3 / iters
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+        if sum(ev.self_device_time_total for ev in events) > 0:
+            us = sum(ev.self_device_time_total for ev in events if match is None or re.search(match, ev.key))
+            return us / 1e3 / iters
+    PROFILER_MISSES.append(f"device_ms(match={match!r})")
+    return None if match else cuda_ms(torch, fn, iters, warmup)
 
 
 def timings(torch, kernel, plain, library) -> dict:
     """Device time per call of the kernel's wrapper, its plain version and
     the one-call library equivalent, plus each call's CUDA-event time
     back to back (which includes host launch overhead when the device
-    outruns the host)."""
-    out = {}
+    outruns the host). "clock" says where the first three came from: the
+    profiler, or CUDA events where it could not trace the card."""
+    out, misses = {}, len(PROFILER_MISSES)
     for name, fn in (("", kernel), ("plain_", plain), ("library_", library)):
         out[f"{name}ms"] = device_ms(torch, fn)
         out[f"{name}call_ms"] = cuda_ms(torch, fn)
+    out["clock"] = "profiler" if len(PROFILER_MISSES) == misses else "cuda_events"
     return out
 
 
@@ -156,10 +190,13 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def projected(torch, np, grid, k, n_src: int, depth_range, rng, dev):
+def projected(torch, np, grid, k, n_src: int, depth_range, rng, dev, stride: int = 1, nearest: bool = True):
     """(pix [1, P, 2], z [1, P], valid [1, P]) of n_src frames with depths
     uniform in depth_range at grid rows 0..n_src-1 projected into row
-    n_src, in source-scanline order (P = n_src * H * W)."""
+    n_src, in source-scanline order (P = n_src * (H / stride) * (W /
+    stride), each source's pixels at its phase of the strided splat);
+    nearest=False keeps the points behind the camera, as collision "last"
+    does."""
     from sgam_neurips22_tpu_torch.geometry.camera import pose_matrix
     from sgam_neurips22_tpu_torch.geometry.splat import project_points
 
@@ -168,7 +205,7 @@ def projected(torch, np, grid, k, n_src: int, depth_range, rng, dev):
     depths = torch.tensor(rng.uniform(*depth_range, (1, n_src, H, W)), dtype=torch.float32, device=dev)
     ks = torch.tensor(np.tile(np.asarray(k, np.float32), (n_src, 1, 1)), device=dev)
     src2tgt = pose_matrix(torch.tensor(rel[:, :3, :3], device=dev), torch.tensor(rel[:, :3, 3], device=dev))
-    return project_points(depths, ks[:1], ks[None], src2tgt[None])
+    return project_points(depths, ks[:1], ks[None], src2tgt[None], splat_stride=stride, nearest=nearest)
 
 
 def pool_keys(torch, pix, z, valid, rng):
@@ -208,7 +245,10 @@ def zbuffer_cases(torch, np, gen, rng) -> dict:
     - pool_recycled: the same points with the slots in runs of POOL_RUN,
       the runs shuffled, as ring recycling leaves them;
     - large: uniform ids over a ZB_LARGE^2 image, 20% invalid: [1, 2^20],
-      4 MB of winners, 18 times what a block's shared memory holds."""
+      4 MB of winners, 18 times what a block's shared memory holds;
+    - flythrough_stride2, scenes_8_stride2, google_earth_stride2: the
+      flythrough, the 8-scene unroll and google_earth at splat_stride 2,
+      (H/2)(W/2) points a source: [1, 81920], [8, 81920], [1, 49152]."""
     from sgam_neurips22_tpu_torch.geometry.camera import pose_matrix
     from sgam_neurips22_tpu_torch.geometry.splat import packed_keys, project_points
     from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
@@ -235,6 +275,11 @@ def zbuffer_cases(torch, np, gen, rng) -> dict:
     lk = torch.tensor(rng.integers(-2**31, IMAX, (1, n)), dtype=torch.int32, device=dev)
     bad = torch.tensor(rng.random((1, n)) < 0.2, device=dev)
     cases["large"] = (torch.where(bad, 0, lp), torch.where(bad, IMAX, lk), ZB_LARGE, ZB_LARGE)
+    fly2 = [packed_keys(*projected(torch, np, *clevr, 5, clevr_depths, rng, dev, 2), W) for _ in range(SCENES)]
+    cases["flythrough_stride2"] = (*fly2[0], H, W)
+    cases["scenes_8_stride2"] = (*(torch.cat(x) for x in zip(*fly2)), H, W)
+    ge2 = projected(torch, np, ge, ge.K, 3, (0.1, 4.77), rng, dev, 2)
+    cases["google_earth_stride2"] = (*packed_keys(*ge2, W), H, W)
     return cases
 
 
@@ -350,6 +395,44 @@ def check_zbuffer(torch, np, gen, failures):
     }
 
 
+def check_collision_modes(torch, np, gen, rng, failures) -> dict:
+    """The splat's two scatter modes, collision "nearest_exact" (an f32
+    scatter-min of z, then the smallest point index among equal-z ties)
+    and "last" (a scatter-max of the pixel-major priority, through its
+    inverse permutation), on the card against the same merge on the CPU:
+    the flythrough's 5 clevr sources projected into row 5 on the CPU, at
+    batch 1 and at 8 scenes ([1|8, 327680] points, int64 batch-folded
+    pixel ids), every 7th point given the z of the point before it for
+    exact ties. The winners, and so the raw depth and features gathered
+    from them, must be bit-identical. Both modes use torch's
+    scatter_reduce_ as JAX uses XLA scatters: no kernel of the port."""
+    from sgam_neurips22_tpu_torch.geometry.splat import _winners
+
+    rows = {}
+    for mode in ("nearest_exact", "last"):
+        for scenes in (1, SCENES):
+            parts = [projected(torch, np, gen.grid, gen.grid.K, 5, (8, 14), rng, "cpu", nearest=mode != "last")
+                     for _ in range(scenes)]
+            pix, zs, valid = (torch.cat(x) for x in zip(*parts))
+            zs[:, 1::7] = zs[:, ::7][:, : zs[:, 1::7].shape[1]]
+            feats = torch.tensor(rng.uniform(-1, 1, (*zs.shape, 3)), dtype=torch.float32)
+            pay = torch.cat([zs.reshape(-1, 1), feats.reshape(-1, 3)], dim=-1)
+            won = {}
+            for dev in ("cpu", "cuda"):
+                args = (pix.to(dev), zs.to(dev), valid.to(dev), H, W, mode, 5)
+                has_point, idx = _winners(*args)
+                won[dev] = torch.where(has_point[:, None], pay.to(dev)[idx], 0.0).cpu()
+            row = {"case": f"{mode}_{scenes}", "points": list(zs.shape), "bit_exact": torch.equal(won["cpu"], won["cuda"]),
+                   "filled_share": float((won["cuda"][:, 0] != 0).float().mean()),
+                   "ms": cuda_ms(torch, lambda: _winners(*args), iters=10)}
+            if mode == "last":
+                row["behind_camera_winners"] = int((won["cuda"][:, 0] < 0).sum())
+            rows[row["case"]] = row
+            if not row["bit_exact"]:
+                failures.append(f"collision {mode} at {scenes} scenes: card and CPU winners differ")
+    return rows
+
+
 def near_ties_ok(torch, z, cb, idx, ref_idx) -> tuple[int, bool]:
     """(rows whose indices differ, whether every one is an f32 near-tie):
     the two codewords' exact (f64) scores e2 - 2 z.e within 1e-6 of the
@@ -389,7 +472,9 @@ def check_nearest_codeword(torch, codebook, failures):
     Exact ties: the clustered codebook with identical codewords at 100 and
     9000 (two K-split ranges), 130 and 250 (one tile, two warps), 16 and 19
     (one warp), and P=256 rows near each: the smaller index must win. Every
-    init shape is timed with plain and `cdist` + `argmin`; bound_ms is the
+    init shape is timed with plain and `cdist` + `argmin`; so are
+    google_earth's (K = 4096, a seeded init codebook, at P = 256 and 2048),
+    with exact ties at K = 4096 too. bound_ms is the
     f32 CUDA-core bound, bound_tc_ms the 3xTF32 one (three TF32 products a
     product at the tensor cores' dense rate), on every row. The reported
     times and bounds are P=256's; every case's are under "shapes"."""
@@ -416,6 +501,14 @@ def check_nearest_codeword(torch, codebook, failures):
         cb_ties[b] = cb_ties[a]
     want = torch.tensor([a for a, _ in VQ_TIES], device=dev).repeat_interleave(-(-256 // len(VQ_TIES)))[:256]
     cases.append(("exact ties P=256", near(cb_ties, want), cb_ties))
+    cb_ge = (torch.rand((VQ_GE_K, d), generator=g, device=dev) * 2 - 1) / VQ_GE_K
+    cases += [(f"init K={VQ_GE_K} P={p}", torch.randn((p, d), generator=g, device=dev), cb_ge) for p in VQ_GE_P]
+    cb_ge_ties = cb_clustered[:VQ_GE_K].clone()
+    for a, b in VQ_GE_TIES:
+        cb_ge_ties[b] = cb_ge_ties[a]
+    want_ge = torch.tensor([a for a, _ in VQ_GE_TIES], device=dev).repeat_interleave(-(-256 // len(VQ_GE_TIES)))[:256]
+    cases.append((f"exact ties K={VQ_GE_K} P=256", near(cb_ge_ties, want_ge), cb_ge_ties))
+    wants = {"exact ties P=256": want, f"exact ties K={VQ_GE_K} P=256": want_ge}
 
     shapes = []
     for name, z, cb in cases:
@@ -433,7 +526,7 @@ def check_nearest_codeword(torch, codebook, failures):
         if name.startswith("clustered"):
             row["ok"] = ties_ok and share <= 1.0
         elif name.startswith("exact ties"):
-            row["smaller_index_mismatches"] = int((idx.long() != want).sum())
+            row["smaller_index_mismatches"] = int((idx.long() != wants[name]).sum())
             row["ok"] = row["smaller_index_mismatches"] == 0
         else:
             row["dist_ok"] = bool(torch.allclose(dist, pdist, rtol=1e-5, atol=0.0))
@@ -668,7 +761,10 @@ def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
     """Device time by kernel over one more call of unroll(), which makes
     `frames` frames, grouped by layer, and the device's idle share:
     1 - device time / the timed unroll's wall time (the profiler itself
-    slows the host, so its own wall time is not used)."""
+    slows the host, so its own wall time is not used). Where the trace
+    holds no device time (the profiler could not trace the card), the
+    device time and idle share are None, not measured, and the miss goes
+    into PROFILER_MISSES."""
     import re
 
     from torch.autograd import DeviceType
@@ -676,7 +772,7 @@ def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # host ops untraced: they cost ~30 s to sort
         unroll()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -686,13 +782,15 @@ def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
             rows.append((ev.self_device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    if not rows:
+        PROFILER_MISSES.append("profile_unroll")
     groups: dict[str, float] = {}
     for us, key, _ in rows:
         label = next(lab for pat, lab in KERNEL_GROUPS if re.search(pat, key))
         groups[label] = groups.get(label, 0.0) + us / 1e3 / frames
     return {
-        "profiled_wall_s": wall, "device_busy_ms_per_frame": busy_s * 1e3 / frames,
-        "device_idle_share": 1.0 - busy_s / timed_s,
+        "profiled_wall_s": wall, "device_busy_ms_per_frame": busy_s * 1e3 / frames if rows else None,
+        "device_idle_share": 1.0 - busy_s / timed_s if rows else None,
         "ms_per_frame_by_layer": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top": [{"kernel": k[:120], "ms": us / 1e3, "calls": n} for us, k, n in rows[:25]],
     }
@@ -751,17 +849,72 @@ def parity_step(torch, gen, cpu_model, failures, seeds_batch=None) -> dict:
     return res
 
 
+def xrec_gate(torch, xrec, xrec_ref, idx, idx_ref) -> dict:
+    """The JAX package's gate of bf16 against f32 (tests/test_vqgan.py::
+    test_bfloat16_compute_mode_close_to_f32): mean |d xrec| < 0.05, max <
+    0.5, codeword index agreement > 0.9. A near-tied latent may pick
+    another codeword under bf16 rounding, which moves its pixels a lot."""
+    d = (xrec.float().cpu() - xrec_ref.float().cpu()).abs()
+    res = {"xrec_mean_abs_err": float(d.mean()), "xrec_max_abs_err": float(d.max()),
+           "index_agreement": float((idx.cpu() == idx_ref.cpu()).float().mean())}
+    res["ok"] = res["xrec_mean_abs_err"] < 0.05 and res["xrec_max_abs_err"] < 0.5 and res["index_agreement"] > 0.9
+    return res
+
+
+def parity_step_bf16(torch, gen, cpu_model16, cpu_model, failures, seeds_batch=None) -> dict:
+    """Frame 1 of a bf16 unroll on the card against the same step on the
+    CPU, for the generator's own scene or for the scenes of seeds_batch at
+    once: the conditioning identical on >= 99.9% of pixels (f32 in both);
+    then the model's forward from the same conditioning, in bf16 on the
+    card and on the CPU and in f32 on the CPU (cpu_model, the same
+    weights). Each bf16 forward is held to the f32 one by `xrec_gate`, the
+    JAX package's bf16-vs-f32 gate; the card's against the CPU's bf16 is
+    reported (two bf16 roundings of one computation, each with its own
+    near-tie flips). The f32 tolerances of parity_step do not apply."""
+    if seeds_batch is None:
+        gen.reset()
+        batch = gen.step_batch(gen.build_plan(), 0, gen.rgb_buf, gen.depth_buf)
+    else:
+        batch = gen.step_batch(gen.build_plan(), 0, *gen.batched_buffers(seeds_batch))
+    with torch.inference_mode():
+        cond = gen.condition(batch)
+        cond_c = gen.condition({k: v.cpu() for k, v in batch.items()})
+        x_agree = float((cond.x.cpu() == cond_c.x).all(dim=-1).float().mean())
+        x, m = cond.x.cpu(), cond.extrapolation_mask.cpu()
+        res, res_c, ref = gen.model(cond.x, cond.extrapolation_mask), cpu_model16(x, m), cpu_model(x, m)
+    out = {"scenes": int(cond.x.shape[0]), "flash_attention": cond.x.shape[0] >= 2,
+           "x_identical_pixel_share": x_agree, "xrec_dtype": str(res.xrec.dtype),
+           "gpu_bf16_vs_cpu_f32": xrec_gate(torch, res.xrec, ref.xrec, res.indices, ref.indices),
+           "cpu_bf16_vs_cpu_f32": xrec_gate(torch, res_c.xrec, ref.xrec, res_c.indices, ref.indices),
+           "gpu_vs_cpu_bf16": xrec_gate(torch, res.xrec, res_c.xrec, res.indices, res_c.indices),
+           "latent_max_err_rel_gpu_vs_cpu_bf16": float((res.pre_quant.cpu() - res_c.pre_quant).abs().max()
+                                                       / res_c.pre_quant.abs().max())}
+    out["ok"] = (x_agree >= 0.999 and res.xrec.dtype == torch.float32 and out["gpu_bf16_vs_cpu_f32"]["ok"]
+                 and out["cpu_bf16_vs_cpu_f32"]["ok"])
+    if not out["ok"]:
+        failures.append(f"bf16 GPU vs CPU parity: {out}")
+    return out
+
+
+def psnr(torch, a, b) -> list:
+    """PSNR in dB of each frame of rgb a against b ([G, H, W, 3] in [-1, 1],
+    so a peak-to-peak range of 2)."""
+    mse = ((a.float() - b.float()) ** 2).flatten(1).mean(1)
+    return [float(x) for x in 10 * torch.log10(4.0 / mse.clamp(min=1e-20))]
+
+
 TRAIN_BATCH = 16  # bench.py --config train_conditional
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-4  # bench.py bench_train
 
 
-def train_config(torch, bs: int):
+def train_config(torch, bs: int, dtype: str = "float32"):
     """The conditional-generation training configuration of `bench.py
     --config train_conditional` on the flagship model (phase
     conditional_generation, n_embed 16384, depth_range (7, 16), as JAX's
     flagship_config): remat, flash attention (the port's AttnBlock takes
-    it at batch >= 2), LossConfig(disc_start=0), LR 1e-4."""
+    it at batch >= 2), LossConfig(disc_start=0), LR 1e-4; with dtype
+    "bfloat16", `--train_dtype bfloat16` (train_conditional_bf16)."""
     import dataclasses
 
     from sgam_neurips22_tpu_torch.serving import flagship_config
@@ -770,14 +923,14 @@ def train_config(torch, bs: int):
 
     if bs < 2:
         raise ValueError("the training phases run flash attention, which AttnBlock takes at batch >= 2")
-    model = flagship_config()
+    model = flagship_config(compute_dtype=dtype)
     model = dataclasses.replace(model, ddconfig=dataclasses.replace(model.ddconfig, remat=True))
     return TrainConfig(model=model, loss=LossConfig(disc_start=0), learning_rate=TRAIN_LR)
 
 
-def train_batch(torch, np, bs: int, device) -> dict:
-    """bench.py's conditional batch (n_src 2, 256^2), from numpy seed 2."""
-    rng = np.random.default_rng(2)
+def train_batch(torch, np, bs: int, device, seed: int = 2) -> dict:
+    """bench.py's conditional batch (n_src 2, 256^2), from numpy seed `seed`."""
+    rng = np.random.default_rng(seed)
     n, h, w = 2, H, W
     k = np.array([[355.5555, 0, 128.0], [0, 355.5555, 128.0], [0, 0, 1.0]], np.float32)
     arrays = {
@@ -816,13 +969,14 @@ def train_components(torch, state, lpips, batch, cfg) -> dict:
     return out
 
 
-def run_train(torch, np, counters, failures) -> tuple:
-    """The training phase: state, a warm-up step, TRAIN_STEPS timed steps
-    (launches counted), parameter movement checks, one profiled step."""
+def run_train(torch, np, counters, failures, dtype: str = "float32") -> tuple:
+    """The training phase with the model in `dtype`: state, a warm-up
+    step, TRAIN_STEPS timed steps (launches counted), parameter movement
+    checks, one profiled step."""
     from sgam_neurips22_tpu_torch.training.lpips import random_lpips
     from sgam_neurips22_tpu_torch.training.train_step import create_train_state, split_params, train_step
 
-    cfg = train_config(torch, TRAIN_BATCH)
+    cfg = train_config(torch, TRAIN_BATCH, dtype)
     t0 = time.perf_counter()
     state = create_train_state(cfg, seed=SEED, device="cuda")
     lpips = random_lpips(SEED + 2).cuda()
@@ -851,7 +1005,8 @@ def run_train(torch, np, counters, failures) -> tuple:
     unmoved = [n for n, p in trainable if torch.equal(p.detach(), before[n])]
     moved_frozen = [n for n, p in frozen if not torch.equal(p.detach(), before[n])]
     rep = {
-        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "seconds": dt, "ms_per_step": dt / TRAIN_STEPS * 1e3,
+        "compute_dtype": dtype, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "seconds": dt,
+        "ms_per_step": dt / TRAIN_STEPS * 1e3,
         "images_per_s": TRAIN_BATCH * TRAIN_STEPS / dt, "warmup_seconds": warm, "setup_seconds": setup_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches_per_step": launches,
         "launches": totals,
@@ -861,9 +1016,9 @@ def run_train(torch, np, counters, failures) -> tuple:
     want = {"zbuffer_min": 1, "nearest_codeword": 1, "flash_attention_fwd": 12,
             "flash_attention_dq": 7, "flash_attention_dkv": 7}
     if not exact or launches != want:
-        failures.append(f"train launch counts per step {launches} (whole steps: {exact}) != {want}")
+        failures.append(f"train ({dtype}) launch counts per step {launches} (whole steps: {exact}) != {want}")
     if not finite or unmoved or moved_frozen:
-        failures.append(f"train: finite={finite} trainable unmoved={unmoved} frozen moved={moved_frozen}")
+        failures.append(f"train ({dtype}): finite={finite} trainable unmoved={unmoved} frozen moved={moved_frozen}")
     prof = profile_unroll(torch, lambda: train_step(state, batch, lpips, cfg), 1, dt / TRAIN_STEPS)
     rep.update({k: v for k, v in prof.items() if k != "top"})
     rep["ms_per_step_by_layer"] = rep.pop("ms_per_frame_by_layer")
@@ -993,10 +1148,145 @@ def parity_train(torch, np, failures, bs: int = 2) -> dict:
         failures.append(f"training step GPU vs CPU: {res}")
     return res
 
-def seed_frames(np, rng) -> list:
-    """One scene's seeds: a random frame at grid (0, 0)."""
+
+def grad_distances(torch, grads, ref, skip=()) -> dict:
+    """Per tensor (skipping `skip`): (the L2 norm of grads - ref over that
+    of ref, the L2 norm of grads over that of ref)."""
+    return {n: (float((grads[n] - ref[n]).norm() / ref[n].norm()), float(grads[n].norm() / ref[n].norm()))
+            for n in ref if n not in skip}
+
+
+def zeroed_dv(attention):
+    """A planted fault: attention.flash_attention_bwd with dV zeroed."""
+    bwd = attention.flash_attention_bwd
+
+    def faulty(*args):
+        dq, dk, dv = bwd(*args)
+        return dq, dk, dv.new_zeros(dv.shape)
+
+    return faulty
+
+
+def parity_train_bf16(torch, np, failures, bs: int = 2, seed: int = SEED, batch_seed: int = 2) -> dict:
+    """One training step at batch `bs` with the model in bf16, on the card
+    and on the CPU, each held to the same step in f32 on the CPU, at inputs
+    where bf16 rounding moves no latent to another codeword: rows 0..P-1 of
+    the codebook are the batch's f32 latents (P = bs * 16 * 16), so each
+    latent is its own nearest codeword at distance 0, and bf16 moves it by
+    about 1% of its length while the nearest other latent lies tens of
+    percent of it away. (On the init codebook bf16 flips 5-7% of the
+    codewords, which moves a gradient by tens of percent of its tensor's
+    largest, as much as a dropped gradient.) Model weights from `seed`,
+    the batch from numpy seed `batch_seed`.
+
+    Runs: f32 on the CPU (the reference), bf16 on the CPU and on the card,
+    and a control, the card's bf16 step with dV of every flash-attention
+    backward zeroed, which has to fail the gradient gate. bf16 rounding
+    alone moves this step's gradients by about half their L2 norm (the
+    median over the tensors 0.45-0.49 on the card and on the CPU, seeds
+    0-2, studies/bf16_train_parity.py; 0.22 at the tests' TINY size, in
+    JAX's own bf16 step as in the port's): at random weights each gradient
+    is a small residual of cancelling terms. So no gate can hold a tensor
+    near f32, and the gates are these:
+    - codeword indices before the step: 0..P-1 in every run;
+    - logs, each bf16 run against the f32 step: within 2^-6 |f32| + 1e-3;
+      d_weight, a ratio of two gradient norms, within 0.15 |f32| (measured
+      0.007-0.053 on the CPU, 0.033-0.094 on the card), and aeloss and
+      total_loss, which hold d_weight * g_loss, within 0.15 |d_weight *
+      g_loss| more;
+    - gradients, per trainable tensor: its L2 norm within (0.5, 2) times
+      the f32 step's in both bf16 runs (rounding noise adds to a norm, a
+      dropped gradient reads 0 and a doubled one 2); against the f32 step,
+      the card's worst L2 distance over the f32 norm within 2 times the
+      CPU's worst, and its median over the tensors within 1.5 times the
+      CPU's. Tensors whose f32 gradient is below 1e-5 of the step's largest
+      (the key biases, which the softmax cancels) are held below 1e-3 of
+      the step's largest instead."""
+    from sgam_neurips22_tpu_torch.models.vqgan.quantize import nearest_codeword_indices
+    from sgam_neurips22_tpu_torch.ops import attention
+    from sgam_neurips22_tpu_torch.training.lpips import random_lpips
+    from sgam_neurips22_tpu_torch.training.train_step import (
+        create_train_state,
+        model_inputs,
+        split_params,
+        train_step,
+    )
+
+    cfg32, cfg16 = train_config(torch, bs), train_config(torch, bs, "bfloat16")
+    batch = train_batch(torch, np, bs, "cpu", batch_seed)
+    with torch.no_grad():
+        x, _, mask = model_inputs(batch, cfg32)
+        latents = create_train_state(cfg32, seed=seed, device="cpu").model.encode_prequant(x, mask)
+        latents = latents.reshape(-1, latents.shape[-1])
+    p = latents.shape[0]
+    kernel_bwd, runs = attention.flash_attention_bwd, {}
+    for run, cfg, dev in (("f32", cfg32, "cpu"), ("cpu", cfg16, "cpu"), ("cuda", cfg16, "cuda"),
+                          ("control", cfg16, "cuda")):
+        if run == "control":
+            attention.flash_attention_bwd = zeroed_dv(attention)
+        try:
+            t0 = time.perf_counter()
+            state = create_train_state(cfg, seed=seed, device=dev)
+            lpips = random_lpips(seed + 2).to(dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                state.model.codebook[:p] = latents.to(dev)
+                xd, _, md = model_inputs(b, cfg)
+                pre = state.model.encode_prequant(xd, md)
+                idx = nearest_codeword_indices(pre.reshape(-1, pre.shape[-1]), state.model.codebook).cpu()
+            _, logs = train_step(state, b, lpips, cfg)
+            grads = {n: g.grad.detach().cpu().double() for n, g in split_params(state.model, cfg.phase)[0]}
+            runs[run] = ({k: float(v) for k, v in logs.items()}, idx, grads, time.perf_counter() - t0)
+            del state, lpips, b, pre
+        finally:
+            attention.flash_attention_bwd = kernel_bwd
+    f_logs, f_idx, f_grads, f_s = runs.pop("f32")
+    top = max(float(g.abs().max()) for g in f_grads.values())
+    noise = sorted(n for n, g in f_grads.items() if float(g.abs().max()) < 1e-5 * top)
+    own = np.arange(p)
+    res = {"batch": bs, "seed": seed, "batch_seed": batch_seed, "codebook_rows_from_latents": p,
+           "f32_seconds": f_s, "f32_logs": f_logs, "f32_index_is_own_row": bool((f_idx.numpy() == own).all()),
+           "grad_noise_tensors": noise}
+    tol = {k: 2**-6 * abs(v) + 1e-3 for k, v in f_logs.items()}
+    tol["train/d_weight"] = 0.15 * abs(f_logs["train/d_weight"])
+    for k in ("aeloss", "train/total_loss"):
+        tol[k] += 0.15 * abs(f_logs["train/d_weight"] * f_logs["train/g_loss"])
+    for run, (logs, idx, grads, secs) in runs.items():
+        dist = grad_distances(torch, grads, f_grads, noise)
+        err = {n: d[0] for n, d in dist.items()}
+        res[run] = {
+            "seconds": secs, "logs": logs, "index_is_own_row": float((idx.numpy() == own).mean()),
+            "log_err_vs_f32": {k: abs(logs[k] - f_logs[k]) for k in f_logs},
+            "logs_ok": all(abs(logs[k] - f_logs[k]) <= tol[k] for k in f_logs),
+            "grad_distances_vs_f32": dist,
+            "grad_worst_vs_f32": max(err.items(), key=lambda kv: kv[1]),
+            "grad_median_vs_f32": float(np.median(list(err.values()))),
+            "grad_norm_ratio_range": [min(d[1] for d in dist.values()), max(d[1] for d in dist.values())],
+            "grad_norm_off": sorted(n for n, d in dist.items() if not 0.5 < d[1] < 2.0),
+            "grad_noise_max": max((float(grads[n].abs().max()) / top for n in noise), default=0.0),
+        }
+    c = res["cpu"]
+    for run in ("cpu", "cuda", "control"):
+        g = res[run]
+        g["grads_ok"] = (not g["grad_norm_off"] and g["grad_noise_max"] <= 1e-3
+                         and g["grad_worst_vs_f32"][1] <= 2.0 * c["grad_worst_vs_f32"][1]
+                         and g["grad_median_vs_f32"] <= 1.5 * c["grad_median_vs_f32"])
+        g["ok"] = res["f32_index_is_own_row"] and g["index_is_own_row"] == 1.0 and g["logs_ok"] and g["grads_ok"]
+    res["control_fails"] = not res["control"]["grads_ok"]
+    res["ok"] = res["cpu"]["ok"] and res["cuda"]["ok"] and res["control_fails"]
+    for run in ("cpu", "cuda", "control"):  # the per-tensor table goes to --out only
+        res[f"{run}_grad_distances_vs_f32"] = res[run].pop("grad_distances_vs_f32")
+    if not res["ok"]:
+        failures.append(f"bf16 training step GPU vs CPU: { {k: v for k, v in res.items() if 'distances' not in k} }")
+    return res
+
+
+def seed_frames(np, rng, depth_range=(8, 14)) -> list:
+    """One scene's seeds: a random frame at grid (0, 0), depths uniform in
+    depth_range (bench.py's: (8, 14) for clevr-infinite, (0.5, 4.0) for
+    google_earth)."""
     return [((0, 0), rng.uniform(-1, 1, (H, W, 3)).astype(np.float32),
-             rng.uniform(8, 14, (H, W)).astype(np.float32))]
+             rng.uniform(*depth_range, (H, W)).astype(np.float32))]
 
 
 def timed_unroll(torch, unroll, counters, prepare=lambda: None) -> tuple:
@@ -1020,9 +1310,29 @@ def timed_unroll(torch, unroll, counters, prepare=lambda: None) -> tuple:
     return res, dt, warm, {fn.__name__: fn.launches for fn in counters}
 
 
+def unroll_phase(torch, unroll, frames: int, counters, want: dict, failures, name: str, prepare=lambda: None,
+                 per_step: int = 1) -> tuple:
+    """timed_unroll, then the checks and the report of an unroll phase:
+    finite frames, the launch counts `want`, and the device time by layer
+    from one more (profiled) call. frames counts the generated frames of
+    one call, per_step the frames of one step (the scenes)."""
+    (rgb, depth), dt, warm, launches = timed_unroll(torch, unroll, counters, prepare)
+    finite = bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())
+    rep = {"frames": frames, "seconds": dt, "frames_per_s": frames / dt, "ms_per_frame": dt / frames * 1e3,
+           "ms_per_step": dt / frames * per_step * 1e3, "warmup_seconds": warm, "launches": launches,
+           "finite": finite, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not finite:
+        failures.append(f"{name}: non-finite frames")
+    if launches != want:
+        failures.append(f"{name}: launch counts {launches} != {want}")
+    prepare()
+    prof = profile_unroll(torch, unroll, frames, dt)
+    rep.update({k: v for k, v in prof.items() if k != "top"})
+    return (rgb, depth), rep, prof
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="profile one more batch-1 unroll")
     ap.add_argument("--out", type=Path, default=None, help="directory for the detailed JSON report")
     args = ap.parse_args(argv)
 
@@ -1068,10 +1378,14 @@ def main(argv=None) -> int:
         (args.out / "chip_smoke_ptxas.txt").write_text("\n".join(f"--- {k}\n{v}" for k, v in ptxas.items()))
     emit({"phase": "build", **report["build"], "card": card})
 
-    # the flagship model with seeded random weights, on the CPU and the card
+    # the flagship model with seeded random weights, on the CPU and the card;
+    # the same weights in the bf16 model
     cpu_model = VQModel(flagship_config())
     load_into(cpu_model, random_state_dict(cpu_model, SEED))
     cpu_model.eval()
+    cpu_model16 = VQModel(flagship_config(compute_dtype="bfloat16"))
+    cpu_model16.load_state_dict(cpu_model.state_dict())
+    cpu_model16.eval()
     rng = np.random.default_rng(SEED)
     seeds = seed_frames(np, rng)
     cfg = SceneGenConfig(dataset="clevr-infinite", output_dim=(FRAMES + 1, 1), topk=1, image_resolution=(H, W))
@@ -1082,33 +1396,25 @@ def main(argv=None) -> int:
     kernels = [check_zbuffer(torch, np, gen, failures), check_nearest_codeword(torch, gen.model.codebook, failures),
                check_flash_attention(torch, failures), *check_flash_backward(torch, failures)]
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "kernels": kernels})
+    t0 = time.perf_counter()
+    report["collision_modes"] = check_collision_modes(torch, np, gen, np.random.default_rng(SEED + 3), failures)
+    emit({"phase": "collision_modes", "seconds": time.perf_counter() - t0, "cases": report["collision_modes"]})
+    paths = {}  # launches of each path's timed run
 
     # 3. the flythrough, batch 1: one warm-up unroll, then one timed unroll
-    #    whose kernel launches are counted
+    #    whose kernel launches are counted, then one profiled unroll
     t0 = time.perf_counter()
-    (rgb, depth), dt, warm, launches = timed_unroll(torch, gen.scene_expansion, counters, gen.reset)
-    finite = bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())
-    unroll_rep = {
-        "frames": FRAMES, "seconds": dt, "frames_per_s": FRAMES / dt,
-        "ms_per_frame": dt / FRAMES * 1e3, "warmup_seconds": warm,
-        "launches": launches, "finite": finite, "card": card,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "gflop_per_frame": model_gflop(torch, flagship_config()),
-    }
+    want1 = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 0,
+             "flash_attention_dq": 0, "flash_attention_dkv": 0}
+    (rgb, _), unroll_rep, report["profile"] = unroll_phase(torch, gen.scene_expansion, FRAMES, counters, want1,
+                                                            failures, "unroll", gen.reset)
+    rgb32 = rgb.clone()
+    unroll_rep.update(card=card, gflop_per_frame=model_gflop(torch, flagship_config()))
     gflop = sum(unroll_rep["gflop_per_frame"].values())
-    unroll_rep["model_tflop_per_s"] = gflop * FRAMES / dt / 1e3
+    unroll_rep["model_tflop_per_s"] = gflop * FRAMES / unroll_rep["seconds"] / 1e3
     unroll_rep["model_bound_ms_per_frame"] = gflop * 1e9 / F32_FLOP_PER_S * 1e3
-    if not finite:
-        failures.append("non-finite frames in the unroll")
-    want = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 0,
-            "flash_attention_dq": 0, "flash_attention_dkv": 0}
-    if launches != want:
-        failures.append(f"unroll launch counts {launches} != {want}")
-    if args.profile:
-        gen.reset()
-        report["profile"] = profile_unroll(torch, gen.scene_expansion, FRAMES, dt)
-        unroll_rep["profile"] = {k: v for k, v in report["profile"].items() if k != "top"}
     unroll_rep["phase_seconds"] = time.perf_counter() - t0
+    paths["unroll"] = unroll_rep["launches"]
     emit({"phase": "unroll", **unroll_rep})
 
     # 4. one full-width step on the card against the CPU
@@ -1120,63 +1426,165 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     seeds_batch = [seed_frames(np, rng) for _ in range(SCENES)]
     gen_b = InfiniteSceneGeneration(gen.model, cfg, seeds_batch[0], device="cuda")
-    (rgb_b, depth_b), dt_b, warm_b, launches_b = timed_unroll(
-        torch, lambda: gen_b.scene_expansion_batched(seeds_batch), counters)
-    frames_b = SCENES * FRAMES
-    finite_b = bool(torch.isfinite(rgb_b).all() and torch.isfinite(depth_b).all())
-    scenes_differ = not torch.equal(rgb_b[0, 1], rgb_b[1, 1])
-    batched = {
-        "scenes": SCENES, "frames_per_scene": FRAMES, "seconds": dt_b,
-        "frames_per_s": frames_b / dt_b, "ms_per_frame": dt_b / frames_b * 1e3,
-        "ms_per_step": dt_b / FRAMES * 1e3, "warmup_seconds": warm_b,
-        "launches": launches_b, "finite": finite_b, "scenes_0_1_differ_at_frame_1": scenes_differ,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card,
-    }
-    batched["model_tflop_per_s"] = gflop * frames_b / dt_b / 1e3
-    del rgb_b, depth_b
-    prof_b = profile_unroll(torch, lambda: gen_b.scene_expansion_batched(seeds_batch), frames_b, dt_b)
-    report["profile_batched"] = prof_b
-    batched.update({k: v for k, v in prof_b.items() if k != "top"})
-    batched["phase_seconds"] = time.perf_counter() - t0
-    emit({"phase": "unroll_batched", **batched})
-    if not (finite_b and scenes_differ):
-        failures.append(f"batched unroll: finite={finite_b} scenes_0_1_differ={scenes_differ}")
     want_b = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 7 * FRAMES,
               "flash_attention_dq": 0, "flash_attention_dkv": 0}
-    if launches_b != want_b:
-        failures.append(f"batched unroll launch counts {launches_b} != {want_b}")
+    (rgb_b, _), batched, report["profile_batched"] = unroll_phase(
+        torch, lambda: gen_b.scene_expansion_batched(seeds_batch), SCENES * FRAMES, counters, want_b, failures,
+        "unroll_batched", per_step=SCENES)
+    scenes_differ = not torch.equal(rgb_b[0, 1], rgb_b[1, 1])
+    batched.update(scenes=SCENES, frames_per_scene=FRAMES, scenes_0_1_differ_at_frame_1=scenes_differ, card=card,
+                   model_tflop_per_s=gflop * SCENES * FRAMES / batched["seconds"] / 1e3)
+    del rgb_b
+    if not scenes_differ:
+        failures.append("batched unroll: scenes 0 and 1 equal at frame 1")
+    batched["phase_seconds"] = time.perf_counter() - t0
+    paths["unroll_batched"] = batched["launches"]
+    emit({"phase": "unroll_batched", **batched})
 
     # 6. one full-width step of 2 scenes on the card (flash kernel) against the CPU
     t0 = time.perf_counter()
     parity_b = parity_step(torch, gen_b, cpu_model, failures, seeds_batch[:2])
     emit({"phase": "parity_batched", "seconds": time.perf_counter() - t0, **parity_b})
-
-    # 7. the conditional-generation training step, batch 16
-    del gen, gen_b
+    del gen_b
     torch.cuda.empty_cache()
+
+    # 7. the flythrough at bf16 (bench.py's default --model_dtype), same
+    #    weights and seeds: launches, time and layers beside the f32
+    #    unroll's, the frames' PSNR against the f32 frames (not gated)
     t0 = time.perf_counter()
-    train, prof_t = run_train(torch, np, counters, failures)
-    report["profile_train"] = prof_t
+    gen16 = InfiniteSceneGeneration(copy.deepcopy(cpu_model16), cfg, seeds, device="cuda")
+    (rgb16, _), bf16_rep, report["profile_bf16"] = unroll_phase(
+        torch, gen16.scene_expansion, FRAMES, counters, want1, failures, "unroll_bf16", gen16.reset)
+    frame_psnr = psnr(torch, rgb16[1:], rgb32[1:])
+    bf16_rep.update(card=card, psnr_vs_f32_db={"mean": float(np.mean(frame_psnr)), "min": min(frame_psnr),
+                                               "first": frame_psnr[0], "last": frame_psnr[-1]},
+                    f32_ms_per_frame=unroll_rep["ms_per_frame"],
+                    f32_ms_per_frame_by_layer=unroll_rep["ms_per_frame_by_layer"],
+                    phase_seconds=time.perf_counter() - t0)
+    paths["unroll_bf16"] = bf16_rep["launches"]
+    emit({"phase": "unroll_bf16", **bf16_rep})
+    t0 = time.perf_counter()
+    parity16 = parity_step_bf16(torch, gen16, cpu_model16, cpu_model, failures)
+    emit({"phase": "parity_bf16", "seconds": time.perf_counter() - t0, **parity16})
+
+    # 8. the 8-scene unroll at bf16 (bench.py's batched_8_scenes)
+    t0 = time.perf_counter()
+    gen16_b = InfiniteSceneGeneration(gen16.model, cfg, seeds_batch[0], device="cuda")
+    (rgb16_b, _), batched16, report["profile_batched_bf16"] = unroll_phase(
+        torch, lambda: gen16_b.scene_expansion_batched(seeds_batch), SCENES * FRAMES, counters, want_b, failures,
+        "unroll_batched_bf16", per_step=SCENES)
+    batched16.update(scenes=SCENES, frames_per_scene=FRAMES, card=card, f32_ms_per_frame=batched["ms_per_frame"],
+                     f32_ms_per_frame_by_layer=batched["ms_per_frame_by_layer"])
+    del rgb16_b
+    batched16["phase_seconds"] = time.perf_counter() - t0
+    paths["unroll_batched_bf16"] = batched16["launches"]
+    emit({"phase": "unroll_batched_bf16", **batched16})
+    t0 = time.perf_counter()
+    parity16_b = parity_step_bf16(torch, gen16_b, cpu_model16, cpu_model, failures, seeds_batch[:2])
+    emit({"phase": "parity_batched_bf16", "seconds": time.perf_counter() - t0, **parity16_b})
+    del gen16_b
+
+    # 9. the strided splat at bf16 (bench.py's flythrough_splat_stride2)
+    t0 = time.perf_counter()
+    cfg2 = SceneGenConfig(dataset="clevr-infinite", output_dim=(FRAMES + 1, 1), topk=1, image_resolution=(H, W),
+                          splat_stride=2)
+    gen2 = InfiniteSceneGeneration(gen16.model, cfg2, seeds, device="cuda")
+    _, stride2, report["profile_stride2"] = unroll_phase(torch, gen2.scene_expansion, FRAMES, counters, want1,
+                                                         failures, "stride2", gen2.reset)
+    stride2.update(card=card, splat_stride=2, bf16_ms_per_frame=bf16_rep["ms_per_frame"],
+                   phase_seconds=time.perf_counter() - t0)
+    paths["stride2"] = stride2["launches"]
+    emit({"phase": "stride2", **stride2})
+    del gen2
+
+    # 10. top-k sampling at bf16: TOPK_FRAMES frames at topk 4, twice from
+    #     one generator seed (the draws need no kernel: plain distances and
+    #     torch.topk, as JAX's codeword_distances and lax.top_k)
+    t0 = time.perf_counter()
+    cfg_k = SceneGenConfig(dataset="clevr-infinite", output_dim=(TOPK_FRAMES + 1, 1), topk=4,
+                           image_resolution=(H, W))
+    gen_k = InfiniteSceneGeneration(gen16.model, cfg_k, seeds, device="cuda")
+    want_k = {**want1, "zbuffer_min": TOPK_FRAMES, "nearest_codeword": 0}
+    runs_k = []
+    for _ in range(2):
+        gen_k.reset()
+        for fn in counters:
+            fn.launches = 0
+        out = gen_k.scene_expansion(torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        runs_k.append(([x.clone() for x in out], {fn.__name__: fn.launches for fn in counters}))
+    (k_rgb, k_depth), launches_k = runs_k[0]
+    topk = {"topk": 4, "frames": TOPK_FRAMES, "launches": launches_k,
+            "same_seed_same_frames": all(torch.equal(a, b) for a, b in zip(runs_k[0][0], runs_k[1][0])),
+            "finite": bool(torch.isfinite(k_rgb).all() and torch.isfinite(k_depth).all()),
+            "differs_from_topk_1": not torch.equal(k_rgb[1], rgb16[1])}
+    topk["ok"] = (all(topk[k] for k in ("same_seed_same_frames", "finite", "differs_from_topk_1"))
+                  and launches_k == want_k == runs_k[1][1])
+    if not topk["ok"]:
+        failures.append(f"topk: {topk} (launches wanted {want_k})")
+    topk["seconds"] = time.perf_counter() - t0
+    paths["topk"] = launches_k
+    emit({"phase": "topk", **topk})
+    del gen_k, gen16, gen, runs_k
+    torch.cuda.empty_cache()
+
+    # 11. google_earth at bf16: its flagship model (codebook 4096, seeded
+    #     random weights), 3 sources, the (FRAMES+1) x 1 trajectory of
+    #     bench.py --config google_earth, seed depths in (0.5, 4.0)
+    t0 = time.perf_counter()
+    ge_model = VQModel(flagship_config("google_earth", "bfloat16"))
+    load_into(ge_model, random_state_dict(ge_model, SEED))
+    cfg_ge = SceneGenConfig(dataset="google_earth", output_dim=(FRAMES + 1, 1), topk=1, image_resolution=(H, W))
+    gen_ge = InfiniteSceneGeneration(ge_model, cfg_ge, seed_frames(np, rng, (0.5, 4.0)), device="cuda")
+    _, ge_rep, report["profile_google_earth"] = unroll_phase(torch, gen_ge.scene_expansion, FRAMES, counters, want1,
+                                                             failures, "google_earth", gen_ge.reset)
+    ge_rep.update(card=card, codebook=list(gen_ge.model.codebook.shape), sources=cfg_ge.effective_num_src,
+                  phase_seconds=time.perf_counter() - t0)
+    paths["google_earth"] = ge_rep["launches"]
+    emit({"phase": "google_earth", **ge_rep})
+    del gen_ge, ge_model
+    torch.cuda.empty_cache()
+
+    # 12. the conditional-generation training step, batch 16
+    t0 = time.perf_counter()
+    train, report["profile_train"] = run_train(torch, np, counters, failures)
     train["phase_seconds"] = time.perf_counter() - t0
+    paths["train"] = train["launches"]
     emit({"phase": "train", **train, "card": card})
 
-    # 8. one training step at batch 2 on the card against the CPU
+    # 13. one training step at batch 2 on the card against the CPU
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     parity_t = parity_train(torch, np, failures)
     emit({"phase": "parity_train", "seconds": time.perf_counter() - t0, **parity_t})
 
+    # 14. the same training step with a bf16 model (train_conditional_bf16),
+    #     then its batch-2 step on the card against the CPU
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train16, report["profile_train_bf16"] = run_train(torch, np, counters, failures, "bfloat16")
+    train16.update(phase_seconds=time.perf_counter() - t0, f32_ms_per_step=train["ms_per_step"],
+                   f32_ms_per_step_by_layer=train["ms_per_step_by_layer"])
+    paths["train_bf16"] = train16["launches"]
+    emit({"phase": "train_bf16", **train16, "card": card})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parity_t16 = parity_train_bf16(torch, np, failures)
+    emit({"phase": "parity_train_bf16", "seconds": time.perf_counter() - t0, **parity_t16})
+
     main_path = {"zbuffer_min": "unroll", "nearest_codeword": "unroll", "flash_attention_fwd": "unroll_batched",
                  "flash_attention_dq": "train", "flash_attention_dkv": "train"}
     for k in kernels:
-        by_path = {"unroll": launches[k["name"]], "unroll_batched": launches_b[k["name"]],
-                   "train": train["launches"][k["name"]]}
-        k["launches"] = by_path[main_path[k["name"]]]
-        k["launches_by_path"] = by_path
+        k["launches"] = paths[main_path[k["name"]]][k["name"]]
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["kernel_ms"] = k["ms"]
     report.update(kernels=kernels, unroll=unroll_rep, parity=parity, unroll_batched=batched,
-                  parity_batched=parity_b, train=train, parity_train=parity_t, failures=failures,
+                  parity_batched=parity_b, unroll_bf16=bf16_rep, parity_bf16=parity16,
+                  unroll_batched_bf16=batched16, parity_batched_bf16=parity16_b, stride2=stride2, topk=topk,
+                  google_earth=ge_rep, train=train, parity_train=parity_t, train_bf16=train16,
+                  parity_train_bf16=parity_t16, profiler_misses=PROFILER_MISSES, failures=failures,
                   seconds=time.perf_counter() - t_start)
+    emit({"phase": "profiler", "misses": len(PROFILER_MISSES), "calls": sorted(set(PROFILER_MISSES))})
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(card, flush=True)

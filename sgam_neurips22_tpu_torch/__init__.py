@@ -5,8 +5,10 @@ the name of its JAX counterpart, and the tests hold each against it. This
 package imports torch, numpy and the standard library only.
 
 Slices covered: the splat-conditioned flythrough unroll, for one scene and
-for S scenes at once (`pipeline.scene_generation.InfiniteSceneGeneration`),
-and the two-optimizer GAN training step (`training.train_step`), with
+for S scenes at once (`pipeline.scene_generation.InfiniteSceneGeneration`;
+f32 or bf16, clevr-infinite or google_earth, every splat collision rule
+and stride, top-k sampling), and the two-optimizer GAN training step
+(`training.train_step`), with
 hand-written CUDA kernels for the z-buffer merge (`ops.zbuffer`), the
 codeword search (`ops.vq`) and the flash attention forward and backward
 (`ops.attention`). Entry points run on `cuda` unless the caller passes

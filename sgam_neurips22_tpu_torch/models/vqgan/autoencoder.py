@@ -1,5 +1,12 @@
 """VQGAN Encoder / Decoder (taming architecture) — port of
-`sgam_neurips22_tpu/models/vqgan/autoencoder.py`, f32, NCHW.
+`sgam_neurips22_tpu/models/vqgan/autoencoder.py`, NCHW.
+
+`DDConfig.compute_dtype` is the activation dtype of the conv stack, with
+JAX's cast points: the encoder casts its input to it and returns the
+latent in f32 (the codeword search stays f32); the decoder casts its input
+to it and returns to f32 before conv_out, so the adaptive GAN weight
+differentiates conv_out in f32. Parameters and GroupNorm statistics stay
+f32 throughout.
 
 `resolution` is the tracking resolution that places the attention blocks,
 exactly as in the reference: for the flagship (resolution 64,
@@ -26,6 +33,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from sgam_neurips22_tpu_torch.core.dtypes import COMPUTE_DTYPES, at_least_f32
 from sgam_neurips22_tpu_torch.models.vqgan.nn import (
     AttnBlock,
     Downsample,
@@ -39,7 +47,8 @@ from sgam_neurips22_tpu_torch.models.vqgan.nn import (
 
 @dataclass(frozen=True)
 class DDConfig:
-    """The reference's ddconfig node (f32), plus the JAX package's `remat`."""
+    """The reference's ddconfig node, plus the JAX package's `remat` and
+    `compute_dtype`."""
 
     ch: int = 128
     out_ch: int = 4
@@ -52,6 +61,17 @@ class DDConfig:
     # rematerialise each down/up level on the backward pass, saving only
     # convolution outputs (JAX DDConfig.remat; numerics are identical)
     remat: bool = False
+    # activation dtype of the conv stack: "float32" (parity) or "bfloat16"
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r} is not one of {sorted(COMPUTE_DTYPES)}")
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        """x in the compute dtype; "float32" leaves x as it is (f32, or
+        float64 in a float64 reference run)."""
+        return x if self.compute_dtype == "float32" else x.to(COMPUTE_DTYPES[self.compute_dtype])
 
 
 def _save_convolutions(ctx, op, *args, **kwargs):
@@ -119,14 +139,15 @@ class Encoder(nn.Module):
         self.mid = _mid(block_in)
         self.norm_out = GroupNorm(block_in)
         self.conv_out = conv2d(block_in, cfg.z_channels)
-        self.remat = cfg.remat
+        self.cfg = cfg
 
     def forward(self, x):
-        h = self.conv_in(x)
+        """The latent in f32 whatever the compute dtype."""
+        h = self.conv_in(self.cfg.cast(x))
         for level in self.down:
-            h = _run_level(level, h, self.remat)
+            h = _run_level(level, h, self.cfg.remat)
         h = _run_mid(self.mid, h)
-        return self.conv_out(swish(self.norm_out(h)))
+        return at_least_f32(self.conv_out(swish(self.norm_out(h))))
 
 
 class Decoder(nn.Module):
@@ -156,16 +177,16 @@ class Decoder(nn.Module):
         self.up = nn.ModuleList(up)
         self.norm_out = GroupNorm(block_in)
         self.conv_out = conv2d(block_in, cfg.out_ch)
-        self.remat = cfg.remat
+        self.cfg = cfg
 
     def features(self, z):
         """Everything before conv_out, up to and including the final
-        norm + swish (JAX `apply_decoder_features`): the adaptive GAN
-        weight differentiates w.r.t. conv_out's kernel alone."""
-        h = _run_mid(self.mid, self.conv_in(z))
+        norm + swish (JAX `apply_decoder_features`), back in f32: the
+        adaptive GAN weight differentiates w.r.t. conv_out's kernel alone."""
+        h = _run_mid(self.mid, self.conv_in(self.cfg.cast(z)))
         for level in reversed(self.up):
-            h = _run_level(level, h, self.remat)
-        return swish(self.norm_out(h))
+            h = _run_level(level, h, self.cfg.remat)
+        return at_least_f32(swish(self.norm_out(h)))
 
     def forward(self, z):
         return self.conv_out(self.features(z))

@@ -1,7 +1,9 @@
 """VQModel, the generative sensing module — port of
-`sgam_neurips22_tpu/models/vqgan/model.py`: forward with topk None or 1,
-and the pieces the training step uses (`decode_features`,
-`get_last_layer`).
+`sgam_neurips22_tpu/models/vqgan/model.py`: forward (quantised, or top-k
+sampled), and the pieces the training step uses (`decode_features`,
+`get_last_layer`). The conv stack runs in `DDConfig.compute_dtype`; conv_in,
+quant_conv, post_quant_conv and the codeword distances stay f32, as their
+inputs are f32 in JAX too.
 
 Public methods take and return NHWC, as the JAX functions do; the conv
 stack inside runs NCHW. Parameter names are the reference state_dict's:
@@ -105,14 +107,18 @@ class VQModel(nn.Module):
         """decoder.conv_out.weight, the anchor of the adaptive GAN weight."""
         return self.decoder.conv_out.weight
 
-    def forward(self, x, extrapolation_mask=None, topk=None, sample_number=1):
-        """Encode -> quantise (topk None) or take the argmin (topk 1) ->
-        decode; NHWC in and out."""
+    def forward(self, x, extrapolation_mask=None, topk=None, sample_number=1, generator=None,
+                topk_position0_bug=False):
+        """Encode -> quantise (topk None) or sample (`quantize_topk`, with
+        the mask and `generator` as JAX passes its mask and rng) -> decode;
+        NHWC in and out. With topk, each of the `sample_number` latents is
+        decoded (folded into the batch) and xrec is [B, S, H, W, out_ch]."""
         pre_quant = self.encode_prequant(x, extrapolation_mask)
         if topk is None:
             q = quantize(self.codebook, pre_quant, self.cfg.beta)
             return ForwardResult(self.decode(q.z_q), q.loss, q.indices, pre_quant, q.z_q)
-        s = quantize_topk(self.codebook, pre_quant, topk, sample_number)
+        s = quantize_topk(self.codebook, pre_quant, topk, sample_number, extrapolation_mask,
+                          position0_bug=topk_position0_bug, generator=generator)
         b, n = s.z_q.shape[:2]
         xrec = self.decode(s.z_q.reshape(b * n, *s.z_q.shape[2:]))
         xrec = xrec.reshape(b, n, *xrec.shape[1:])

@@ -3,7 +3,9 @@
 
 Modules run NCHW inside the conv stack; their parameter names are the
 reference state_dict's (`norm1`, `conv1`, `nin_shortcut`, `q`, `k`, `v`,
-`proj_out`, ...), so checkpoints load one to one.
+`proj_out`, ...), so checkpoints load one to one. Parameters stay f32;
+each conv casts its weight and bias to its input's dtype at every call,
+as the JAX `conv2d` does, so a bf16 activation runs a bf16 conv.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sgam_neurips22_tpu_torch.core.dtypes import at_least_f32
 from sgam_neurips22_tpu_torch.ops import attention
 
 
@@ -20,10 +23,18 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def conv2d(cin: int, cout: int, k: int = 3, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in its input's dtype: the f32 weight and bias are cast to
+    x.dtype at each call (a no-op for f32 input)."""
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride, self.padding)
+
+
+def conv2d(cin: int, cout: int, k: int = 3, stride: int = 1) -> Conv2d:
     """Conv with SAME padding for stride 1 (k // 2 each side for odd k);
     stride-2 convs are padded by their caller (see Downsample)."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2 if stride == 1 else 0)
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2 if stride == 1 else 0)
 
 
 def group_norm(
@@ -38,7 +49,7 @@ def group_norm(
     if c % num_groups != 0:
         raise ValueError(f"GroupNorm: channels ({c}) must be divisible by {num_groups}")
     cg = c // num_groups
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    xf = at_least_f32(x)
     gm = xf.mean(dim=(2, 3)).reshape(b, num_groups, cg).mean(dim=2)  # [B, G]
     d = xf - gm.repeat_interleave(cg, dim=1)[:, :, None, None]
     gv = (d * d).mean(dim=(2, 3)).reshape(b, num_groups, cg).mean(dim=2)
@@ -113,7 +124,10 @@ class AttnBlock(nn.Module):
     with the scale applied after the dot as there: the batch-1 unroll's
     codeword indices are held to the JAX ones, and
     `ops.attention.flash_attention_plain` rounds as the kernel does (scale on
-    q before the dot) instead."""
+    q before the dot) instead. In bf16 the plain path takes the logits and
+    the softmax in f32 (q and k upcast: their products are exact in f32)
+    and the second product in bf16, as JAX's einsums do; the flash path
+    computes in f32 and returns bf16."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -134,6 +148,6 @@ class AttnBlock(nn.Module):
                 q.contiguous(), k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
             ).transpose(1, 2).reshape(b, c, h, w)
         else:
-            weights = torch.softmax(torch.bmm(q, k) * (1.0 / math.sqrt(c)), dim=-1)
-            out = torch.bmm(v, weights.transpose(1, 2)).reshape(b, c, h, w)
+            weights = torch.softmax(torch.bmm(at_least_f32(q), at_least_f32(k)) * (1.0 / math.sqrt(c)), dim=-1)
+            out = torch.bmm(v, weights.to(v.dtype).transpose(1, 2)).reshape(b, c, h, w)
         return x + self.proj_out(out)

@@ -1,5 +1,6 @@
 """Single-head flash attention: softmax(q k^T / sqrt(C)) v over [B, S, C]
-float32 tensors (the JAX package's layout), forward and backward.
+tensors (the JAX package's layout), forward and backward. The kernels take
+float32; `flash_attention` also takes bf16 and casts around them.
 
 `flash_attention` goes through the `FlashAttention` autograd function on
 every device, as the JAX `flash_attention` carries its custom VJP: the
@@ -30,6 +31,7 @@ import ctypes
 
 import torch
 
+from sgam_neurips22_tpu_torch.core.dtypes import at_least_f32
 from sgam_neurips22_tpu_torch.ops import cuda_build
 
 KERNEL_CHANNELS = (64, 128, 256, 512)  # the widths the kernels are instantiated for
@@ -215,21 +217,27 @@ def flash_attention_bwd(q, k, v, out, lse, dout):
 
 class FlashAttention(torch.autograd.Function):
     """softmax(q k^T / sqrt(C)) v with the flash-attention backward: the JAX
-    `_flash_attention` custom VJP (residuals q, k, v, out, lse)."""
+    `_flash_attention` custom VJP (residuals q, k, v, out, lse). As the JAX
+    kernels do, it computes in f32 whatever the inputs' dtype: bf16 inputs
+    go in widened, `out` comes back in q's dtype and is the residual that
+    D = rowsum(dO * O) reads, and each gradient is in its input's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, lse = flash_attention_fwd(q, k, v)
+        out, lse = flash_attention_fwd(at_least_f32(q), at_least_f32(k), at_least_f32(v))
+        out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, out, lse, dout.contiguous())
+        grads = flash_attention_bwd(*(at_least_f32(x) for x in (q, k, v, out)), lse, at_least_f32(dout).contiguous())
+        return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(C)) v for single-head [B, S, C] tensors,
-    differentiable through `FlashAttention`."""
+    """softmax(q k^T / sqrt(C)) v for single-head [B, S, C] tensors of one
+    floating dtype (f32 inside the kernels), differentiable through
+    `FlashAttention`."""
     return FlashAttention.apply(q, k, v)

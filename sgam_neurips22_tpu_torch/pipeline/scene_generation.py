@@ -5,13 +5,15 @@
 The plan (per-step target, sources, relative transforms) is built on the
 host from the pose grid and uploaded once; the unroll is one loop over it
 in which every frame stays on the device: source gather -> splat
-conditioning -> encode -> nearest codeword -> decode -> depth decode ->
-write into the [G, H, W, 3] RGB and [G, H, W] depth buffers, updated in
-place. The batched unroll keeps S scenes' buffers flat, [S*G, ...], shares
-the plan across scenes and runs the model at batch S with flash attention.
+conditioning -> encode -> nearest codeword (or a top-k draw) -> decode ->
+depth decode -> write into the [G, H, W, 3] RGB and [G, H, W] depth
+buffers, updated in place. The batched unroll keeps S scenes' buffers
+flat, [S*G, ...], shares the plan across scenes and runs the model at
+batch S with flash attention.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -20,6 +22,7 @@ import torch
 
 from sgam_neurips22_tpu_torch.core.device import resolve_device
 from sgam_neurips22_tpu_torch.geometry.codec import get_codec
+from sgam_neurips22_tpu_torch.geometry.splat import COLLISIONS
 from sgam_neurips22_tpu_torch.models.conditioning import get_x
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
 from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
@@ -36,31 +39,46 @@ class SceneGenConfig:
     output_dim: Tuple[int, int] = (20, 20)
     num_src: Optional[int] = None
     topk: int = 1
+    # the reference's topk>1 position-0 sampling bug, opt-in
+    # (models.vqgan.quantize.quantize_topk, position0_bug)
+    topk_position0_compat: bool = False
     step_size_denom: float = 2.0
     order: str = "zigzag"
     image_resolution: Tuple[int, int] = (256, 256)
-    collision: str = "nearest"
+    collision: str = "nearest"  # geometry.splat.COLLISIONS
+    # splat every s-th source pixel with per-source phase offsets
+    # (geometry.splat.render_projection_from_srcs); 1 = every pixel, as the
+    # reference
     splat_stride: int = 1
 
     def __post_init__(self):
-        if self.collision != "nearest" or self.splat_stride != 1:
-            raise NotImplementedError(
-                f"collision={self.collision!r}, splat_stride={self.splat_stride}: "
-                "only 'nearest' at stride 1 is ported (ROADMAP.md, queue item (b))"
-            )
-        if self.topk != 1:
-            raise NotImplementedError(
-                f"topk={self.topk}: only topk=1 is ported (ROADMAP.md, queue item (b))"
-            )
+        if self.collision not in COLLISIONS:
+            raise ValueError(f"unknown collision mode {self.collision!r}")
+        s = int(self.splat_stride)
         h, w = self.image_resolution
-        pts = self.effective_num_src * h * w
-        if pts >= (1 << 19):
+        if self.collision == "nearest":
             # the packed z-buffer key holds 19 bits of point index
-            raise ValueError(
-                f"splat conditioning at {h}x{w} with {self.effective_num_src} "
-                f"sources produces {pts} points/frame, over the packed "
-                "z-buffer's 2^19 point capacity"
-            )
+            pts = self.effective_num_src * (h // s) * (w // s)
+            if pts >= (1 << 19):
+                raise ValueError(
+                    f"splat conditioning at {h}x{w} with {self.effective_num_src} "
+                    f"sources and splat_stride={s} produces {pts} points/frame, over "
+                    "the packed z-buffer's 2^19 point capacity; raise splat_stride or "
+                    "set collision='nearest_exact' (unpacked)"
+                )
+        if s > 1:
+            if s >= min(h, w):
+                raise ValueError(f"splat_stride {s} >= image size {min(h, w)}")
+            if self.collision == "last":
+                raise ValueError("splat_stride > 1 requires collision='nearest' or 'nearest_exact'")
+            n = self.effective_num_src
+            if n < s * s:
+                # full phase coverage needs >= s^2 sources; fewer is allowed
+                # (google_earth runs 3 at stride 2), and the fills close the rest
+                warnings.warn(
+                    f"splat_stride={s} with {n} sources covers only {n}/{s * s} phase "
+                    "cells; raw splat coverage will rely on hole filling"
+                )
 
     @property
     def effective_num_src(self) -> int:
@@ -178,22 +196,35 @@ class InfiniteSceneGeneration:
             "src_masks": plan["src_mask"][t][None].expand(s, n),
         }
 
-    def decode_batch(self, cond):
-        """(rgb [B, H, W, 3], metric depth [B, H, W]) from the conditioning.
-        The model's attention takes the flash path at batch >= 2 and the
-        plain one at batch 1, as the JAX pipeline selects its kernel."""
-        res = self.model(cond.x, extrapolation_mask=cond.extrapolation_mask, topk=self.cfg.topk)
+    def condition(self, batch: dict):
+        """The splat conditioning of a step batch: no depth range, as at
+        inference in the reference, with the configured collision rule and
+        splat stride."""
+        return get_x(batch, self.cfg.dataset, depth_range=None, collision=self.cfg.collision,
+                     splat_stride=self.cfg.splat_stride)
+
+    def decode_batch(self, cond, generator: Optional[torch.Generator] = None):
+        """(rgb [B, H, W, 3], metric depth [B, H, W]) from the conditioning,
+        sample 0 of the configured top-k draw (`generator` draws it at
+        topk > 1). The model's attention takes the flash path at batch >= 2
+        and the plain one at batch 1, as the JAX pipeline selects its
+        kernel."""
+        res = self.model(cond.x, extrapolation_mask=cond.extrapolation_mask, topk=self.cfg.topk,
+                         generator=generator, topk_position0_bug=self.cfg.topk_position0_compat)
         xrec = res.xrec[:, 0]  # sample 0
         return torch.clamp(xrec[..., :3], -1.0, 1.0), self.codec.decode(xrec[..., 3])
 
-    def _unroll(self, plan: dict, rgb_flat, depth_flat) -> None:
+    def _unroll(self, plan: dict, rgb_flat, depth_flat, generator: Optional[torch.Generator]) -> None:
         """Every step of the plan for all scenes of the flat buffers, which
-        take each new frame in place at s*G + tgt."""
+        take each new frame in place at s*G + tgt. At topk > 1 the steps
+        draw from `generator` in turn; None is a generator on the device
+        seeded with 3, as JAX's default key is PRNGKey(3)."""
+        if generator is None and self.cfg.topk > 1:
+            generator = torch.Generator(device=self.device).manual_seed(3)
         s = rgb_flat.shape[0] // self.grid.size
         scene_base = torch.arange(s, device=self.device) * self.grid.size
         for t, tgt in enumerate(plan["tgt"]):
-            cond = get_x(self.step_batch(plan, t, rgb_flat, depth_flat), self.cfg.dataset, depth_range=None)
-            rgb, depth = self.decode_batch(cond)
+            rgb, depth = self.decode_batch(self.condition(self.step_batch(plan, t, rgb_flat, depth_flat)), generator)
             dst = scene_base + tgt
             rgb_flat[dst] = rgb
             depth_flat[dst] = depth
@@ -201,9 +232,9 @@ class InfiniteSceneGeneration:
     @torch.inference_mode()
     def scene_expansion(self, generator: Optional[torch.Generator] = None):
         """Unroll the rest of the grid. Returns the (rgb [G, H, W, 3],
-        depth [G, H, W]) device buffers. `generator` is the sampling
-        generator for topk > 1; the ported topk=1 draws nothing."""
-        self._unroll(self.build_plan(), self.rgb_buf, self.depth_buf)
+        depth [G, H, W]) device buffers. `generator` (on the device) draws
+        the samples at topk > 1; topk=1 draws nothing."""
+        self._unroll(self.build_plan(), self.rgb_buf, self.depth_buf, generator)
         self.grid.visited[:] = True
         self.curr = len(self.order)
         return self.rgb_buf, self.depth_buf
@@ -218,12 +249,13 @@ class InfiniteSceneGeneration:
         Args:
           seeds_batch: one seed list [(coord, rgb, depth), ...] per scene;
             every scene must seed the same coords.
-          generator: the sampling generator for topk > 1; topk=1 draws nothing.
+          generator: on the device, draws the samples at topk > 1; topk=1
+            draws nothing.
         Returns:
           (rgb [S, G, H, W, 3], depth [S, G, H, W]) on the device.
         """
         rgb_flat, depth_flat = self.batched_buffers(seeds_batch)
-        self._unroll(self.build_plan(), rgb_flat, depth_flat)
+        self._unroll(self.build_plan(), rgb_flat, depth_flat, generator)
         h, w = self.cfg.image_resolution
         return rgb_flat.reshape(-1, self.grid.size, h, w, 3), depth_flat.reshape(-1, self.grid.size, h, w)
 

@@ -134,7 +134,10 @@ def main(argv=None) -> int:
         return f
 
     def us(fn, match=None, iters=20):
-        return cs.device_ms(torch, fn, iters=iters, match=match) * 1e3
+        ms = cs.device_ms(torch, fn, iters=iters, match=match)
+        if ms is None or cs.PROFILER_MISSES:
+            raise RuntimeError("torch.profiler recorded no device time: this study needs its trace")
+        return ms * 1e3
 
     def exact(fn, pix, key, h, w, ref):
         out = fn(pix, key, h, w)

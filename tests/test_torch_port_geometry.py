@@ -113,11 +113,20 @@ def test_nearest_splat_matches_jax(seed):
 
 
 def test_splat_other_modes_raise():
+    """The strided splat with collision 'last' and an unknown collision mode
+    raise ValueError, as in JAX; the other modes run (held to JAX in
+    tests/test_torch_port_splat_modes.py)."""
     feats, depths, ks, r, tr, _ = _splat_inputs()
     t2s = torch.eye(4).expand(B, N, 4, 4)
+    args = (t(feats), t(depths), t(ks[:, 0]), t(ks), t2s)
+    for kw, match in ((dict(collision="last", splat_stride=2), "splat_stride"), (dict(collision="first"), "unknown")):
+        with pytest.raises(ValueError, match=match):
+            render_projection_from_srcs(*args, **kw)
+        with pytest.raises(ValueError, match=match):
+            j_render(*(jnp.asarray(a.numpy()) for a in args), pallas=False, **kw)
     for kw in (dict(collision="last"), dict(collision="nearest_exact"), dict(splat_stride=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_projection_from_srcs(t(feats), t(depths), t(ks[:, 0]), t(ks), t2s, **kw)
+        res = render_projection_from_srcs(*args, **kw)
+        assert res.depth.shape == (B, H, W, 1) and res.features.shape == (B, H, W, 3)
 
 
 def test_get_x_matches_jax():

@@ -1,6 +1,7 @@
 """The PyTorch port's host modules and its whole splat unroll, held against
 the JAX package (the reference) on the CPU."""
 import os
+import warnings
 
 import jax
 import numpy as np
@@ -17,6 +18,7 @@ from sgam_neurips22_tpu.pipeline.trajectory import (
     default_intrinsics as j_intrinsics,
     prepare_grid as j_grid,
 )
+from sgam_neurips22_tpu_torch.geometry.codec import get_codec
 from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
 from sgam_neurips22_tpu_torch.pipeline.scene_generation import (
     InfiniteSceneGeneration,
@@ -90,6 +92,33 @@ def test_port_unroll_matches_live_jax_unroll(jax_params):
     np.testing.assert_allclose(p_depth, np.asarray(j_depth), atol=1e-4)
 
 
+def test_google_earth_unroll_matches_jax():
+    """A google_earth 3x3 unroll with the fields flagship_config gives that
+    dataset (depth range, codec, 3 sources, its pose grid and intrinsics)
+    at TINY widths, seeded with depths in bench.py's (0.5, 4.0): rgb at
+    atol 1e-5 and depth at atol 1e-4 plus 1e-5 of the depth, the batched
+    unroll test's tolerances."""
+    from dataclasses import replace
+
+    from sgam_neurips22_tpu.models import init_vqmodel
+    from sgam_neurips22_tpu.serving import flagship_config as j_flagship_config
+
+    full = j_flagship_config("google_earth")
+    cfg = replace(TINY, dataset=full.dataset, depth_range=full.depth_range)
+    params = init_vqmodel(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(11)
+    seeds = [((0, 0), rng.uniform(-1, 1, (H, W, 3)).astype(np.float32),
+              rng.uniform(0.5, 4.0, (H, W)).astype(np.float32))]
+    kw = dict(dataset="google_earth", output_dim=(3, 3), topk=1, image_resolution=(H, W))
+    j_rgb, j_depth = JGen(params, cfg, JCfg(**kw), seeds=seeds).scene_expansion(jax.random.PRNGKey(0))
+    gen = InfiniteSceneGeneration(port_model(params, cfg), SceneGenConfig(**kw), seeds, device="cpu")
+    assert gen.cfg.effective_num_src == 3 and gen.codec.depth_range == get_codec("google_earth").depth_range
+    rgb, depth = gen.scene_expansion()
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(j_rgb), atol=1e-5)
+    np.testing.assert_allclose(depth.numpy(), np.asarray(j_depth), atol=1e-4, rtol=1e-5)
+    assert np.isfinite(depth.numpy()).all()
+
+
 def test_plan_is_memoised_and_matches_jax(jax_params):
     cfg = SceneGenConfig(output_dim=(3, 3), num_src=3, image_resolution=(H, W))
     rgb, depth = make_seed()
@@ -107,12 +136,39 @@ def test_plan_is_memoised_and_matches_jax(jax_params):
         np.testing.assert_array_equal(plan[k].numpy(), np.asarray(jplan[k]))
 
 
-def test_config_checks():
-    with pytest.raises(ValueError, match="2\\^19 point capacity"):
-        SceneGenConfig(output_dim=(2, 2), image_resolution=(512, 512))
-    for bad in (dict(collision="last"), dict(splat_stride=2), dict(topk=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SceneGenConfig(output_dim=(2, 2), **bad)
+@pytest.mark.parametrize("kw,error", [
+    (dict(image_resolution=(512, 512)), "2\\^19 point capacity.*nearest_exact"),  # 5 * 512^2 points
+    (dict(image_resolution=(512, 512), splat_stride=2), None),  # 5 * 256^2: fits
+    (dict(image_resolution=(512, 512), collision="nearest_exact"), None),  # unpacked: no capacity
+    (dict(splat_stride=256), "splat_stride 256 >= image size"),
+    (dict(collision="last", splat_stride=2), "splat_stride > 1 requires"),
+    (dict(collision="first"), "unknown collision"),
+])
+def test_config_checks(kw, error):
+    """SceneGenConfig validates as JAX's does: the packed z-buffer's 2^19
+    capacity counts (h//s)(w//s) points a source and names nearest_exact as
+    the way out, a stride as large as the image raises, and so does the
+    strided splat with collision 'last'."""
+    if error is None:
+        assert SceneGenConfig(output_dim=(2, 2), **kw) and JCfg(output_dim=(2, 2), **kw)
+    else:
+        with pytest.raises(ValueError, match=error):
+            SceneGenConfig(output_dim=(2, 2), **kw)
+        if "collision" not in kw:  # JAX finds these two in the splat, at trace time
+            with pytest.raises(ValueError):
+                JCfg(output_dim=(2, 2), **kw)
+
+
+def test_config_warns_below_full_phase_coverage(capsys):
+    """Fewer than s^2 sources at stride s leaves phase cells to the fills:
+    a warning, as JAX prints one; s^2 sources or more, none."""
+    with pytest.warns(UserWarning, match="covers only 3/4 phase cells"):
+        SceneGenConfig(dataset="google_earth", output_dim=(2, 2), splat_stride=2)
+    JCfg(dataset="google_earth", output_dim=(2, 2), splat_stride=2)
+    assert "covers only 3/4 phase cells" in capsys.readouterr().out
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        SceneGenConfig(output_dim=(2, 2), num_src=4, splat_stride=2)
 
 
 def test_default_device_is_cuda(jax_params):

@@ -90,19 +90,21 @@ def test_flagship_layout_matches_jax():
     assert model.codebook.shape == (16384, 256)
 
 
-def test_flagship_config_matches_jax():
-    """Every field of the port's flagship_config (VQModelConfig and its
-    DDConfig) equals the same-named field of JAX's, and JAX's fields that
-    the port does not have hold the values the port hard-codes (f32, the
-    extrapolation mask in conv_in, no dropout; flash attention chosen by
-    the port's AttnBlock from the batch size)."""
+@pytest.mark.parametrize("dataset,dtype", [
+    ("clevr-infinite", "float32"), ("google_earth", "float32"), ("clevr-infinite", "bfloat16"),
+])
+def test_flagship_config_matches_jax(dataset, dtype):
+    """Every field of the port's flagship_config(dataset, compute_dtype)
+    (VQModelConfig and its DDConfig) equals the same-named field of JAX's,
+    and JAX's fields that the port does not have hold the values the port
+    hard-codes (the extrapolation mask in conv_in, no dropout; flash
+    attention chosen by the port's AttnBlock from the batch size)."""
     import dataclasses
 
-    got, want = flagship_config(), j_flagship_config()
+    got, want = flagship_config(dataset, dtype), j_flagship_config(dataset, dtype)
     only_jax = {
         "model": {"use_extrapolation_mask": True, "vq_step_threshold": 0},
-        "ddconfig": {"dropout": 0.0, "resamp_with_conv": True, "double_z": False,
-                     "compute_dtype": "float32", "flash_attention": None},
+        "ddconfig": {"dropout": 0.0, "resamp_with_conv": True, "double_z": False, "flash_attention": None},
     }
     for part, ours, theirs in (("model", got, want), ("ddconfig", got.ddconfig, want.ddconfig)):
         names = {f.name for f in dataclasses.fields(ours)}
@@ -165,9 +167,19 @@ def test_quantize_matches_golden(golden_models):
 
 
 def test_quantize_topk_other_than_one_raises(golden_models):
+    """topk > 1 draws: without a generator (or the noise itself) it raises,
+    as JAX's forward raises without an rng key; with one it samples among
+    each position's topk nearest codewords."""
     g, _, _, codebook = golden_models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_topk(codebook, t(g["vq_in"]), topk=4)
+    z = t(g["vq_in"])
+    with pytest.raises(ValueError, match="generator"):
+        quantize_topk(codebook, z, topk=4)
+    res = quantize_topk(codebook, z, topk=4, sample_number=3, generator=torch.Generator().manual_seed(0))
+    b, h, w, d = z.shape
+    assert res.indices.shape == (b, 3, h, w) and res.z_q.shape == (b, 3, h, w, d)
+    near = torch.topk(-codeword_distances(z.reshape(-1, d), codebook), 4, dim=1).indices
+    drawn = res.indices.permute(0, 2, 3, 1).reshape(-1, 3).long()
+    assert bool((drawn[:, :, None] == near[:, None, :]).any(-1).all())
 
 
 @pytest.mark.parametrize("topk", [None, 1])

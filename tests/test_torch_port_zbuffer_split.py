@@ -192,6 +192,9 @@ def test_l2_route_split_bit_exact_vs_pallas(name, offset):
     (8, 327680, 256, 256, "tile", 16, 5, 200),  # scenes_8
     (16, 131072, 256, 256, "tile", 8, 2, 200),  # train
     (1, 196608, 256, 256, "l2", 528, 1, 0),  # google_earth
+    (1, 81920, 256, 256, "l2", 528, 1, 0),  # flythrough at splat_stride 2: (h/2)(w/2) points a source
+    (8, 81920, 256, 256, "l2", 66, 1, 0),  # 8 scenes at splat_stride 2: too few points a block for the window
+    (1, 49152, 256, 256, "l2", 528, 1, 0),  # google_earth at splat_stride 2
     (16, 262144, 256, 256, "tile", 8, 4, 200),  # pool_coherent / pool_recycled
     (1, 1 << 20, 1024, 1024, "l2", 528, 1, 0),  # large
     (8, 327679, 256, 256, "tile", 16, 1, 200),  # ragged P: one segment

@@ -33,7 +33,7 @@ def port_config(cfg: VQModelConfig) -> t_model.VQModelConfig:
             num_res_blocks=dd.num_res_blocks,
             attn_resolutions=tuple(dd.attn_resolutions),
             in_channels=dd.in_channels, resolution=dd.resolution,
-            z_channels=dd.z_channels, remat=dd.remat,
+            z_channels=dd.z_channels, remat=dd.remat, compute_dtype=dd.compute_dtype,
         ),
         n_embed=cfg.n_embed, embed_dim=cfg.embed_dim, phase=cfg.phase, beta=cfg.beta,
         dataset=cfg.dataset, depth_range=cfg.depth_range,
