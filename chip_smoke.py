@@ -40,6 +40,27 @@ the device's idle share):
   kernel (the draws use plain distances, as JAX's);
 - google_earth: bench.py --config google_earth, its flagship model in
   bf16 (codebook 4096), 3 sources, its (24+1) x 1 trajectory;
+- unroll_tsdf, unroll_tsdf_ge, unroll_tsdf_ge_coherent: map re-query in
+  bf16 (`use_rgbd_integration`, the auto-sized TSDF volume): bench.py
+  --config integration (clevr-infinite, 3x3, 8 frames, 5 sources, seed
+  depth U(8, 14)); google_earth --rgbd_integration on its 25 x 1
+  trajectory (24 frames, cut from 100; 3 sources, codebook 4096, a pool
+  of 2^20 slots that recycles); and the same with coherent_plane_depth
+  (--coherent). Each checks finite frames and one z-buffer and one
+  codeword launch a frame, reports the pool telemetry bench.py prints and
+  the fused share of depth samples, times the map's functions alone
+  (map_ms) and runs integrate and render_depth once under
+  torch.cuda.set_sync_debug_mode("error");
+- map_parity (f32): integrate's state on the card against the CPU (the
+  seed and 3 generated frames; CLEVR, and google_earth at stride 1 and 2):
+  the integer state bit-exact, the grid within GRID_MAX_ABS_DIFF with at
+  most GRID_OBSERVEDNESS_SHARE of observed voxels changing observedness;
+  render_depth (splat, raycast nearest and trilinear) from one volume on
+  both: the splat's keys, z-buffer winners and every depth bit-exact; and
+  frame 1 of the map-requery unroll under parity's gates; then the
+  z-buffer on the keys the pool splat built at the last frame of
+  unroll_tsdf ([3, 204960]) and unroll_tsdf_ge ([4, 262144]), bit-exact on
+  both routes, each route timed beside scatter_reduce;
 - train: the conditional-generation GAN training step as `bench.py
   --config train_conditional` defines it (batch 16, n_src 2, n_embed
   16384, remat, flash attention, disc_start 0, Adam (0.5, 0.9), LPIPS with
@@ -796,24 +817,29 @@ def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
     }
 
 
-def parity_step(torch, gen, cpu_model, failures, seeds_batch=None) -> dict:
+def parity_step(torch, gen, cpu_model, failures, seeds_batch=None, batches=None) -> dict:
     """Frame 1 of the unroll on the card against the same step on the CPU
     (plain versions), same weights and inputs, stage by stage: for the
     generator's own scene, or for the scenes of seeds_batch at once (the
-    flash-attention path at 2 scenes and up, as the batched unroll runs)."""
+    flash-attention path at 2 scenes and up, as the batched unroll runs),
+    or from a given (card, CPU) pair of conditioning batches (map re-query,
+    whose CPU batch is rendered and warped on the CPU)."""
     from sgam_neurips22_tpu_torch.models.conditioning import get_x
     from sgam_neurips22_tpu_torch.models.vqgan.quantize import nearest_codeword_indices
 
-    if seeds_batch is None:
-        gen.reset()
-        batch = gen.step_batch(gen.build_plan(), 0, gen.rgb_buf, gen.depth_buf)
-    else:
-        batch = gen.step_batch(gen.build_plan(), 0, *gen.batched_buffers(seeds_batch))
-    flash = batch["src_imgs"].shape[0] >= 2
+    if batches is None:
+        if seeds_batch is None:
+            gen.reset()
+            batch = gen.step_batch(gen.build_plan(), 0, gen.rgb_buf, gen.depth_buf)
+        else:
+            batch = gen.step_batch(gen.build_plan(), 0, *gen.batched_buffers(seeds_batch))
+        batches = (batch, {k: v.cpu() for k, v in batch.items()})
+    batch, batch_c = batches
+    flash = batch["dst_img"].shape[0] >= 2
     model, ds, codec = gen.model, gen.cfg.dataset, gen.codec
     with torch.inference_mode():
         cond = get_x(batch, ds)
-        cond_c = get_x({k: v.cpu() for k, v in batch.items()}, ds)
+        cond_c = get_x(batch_c, ds)
         # 1. conditioning: identical on >= 99.9% of pixels (projection may
         #    round differently at a pixel or z-level boundary)
         same = cond.x.cpu() == cond_c.x
@@ -1281,6 +1307,285 @@ def parity_train_bf16(torch, np, failures, bs: int = 2, seed: int = SEED, batch_
     return res
 
 
+MAP_GRID = (3, 3)  # bench.py --config integration: 8 frames on a 3x3 grid
+MAP_PARITY_FRAMES = 3  # generated frames that map_parity fuses after the seed
+
+
+def map_config(dataset: str, grid, coherent: bool = False):
+    """bench.py's map-requery configuration of `dataset` on `grid`: its
+    auto-sized volume and defaults (splat re-query, stride 1), 256^2, topk 1."""
+    from sgam_neurips22_tpu_torch.pipeline.scene_generation import SceneGenConfig
+
+    return SceneGenConfig(dataset=dataset, output_dim=grid, topk=1, image_resolution=(H, W),
+                          use_rgbd_integration=True, coherent_plane_depth=coherent)
+
+
+def pool_telemetry(np, gen) -> dict:
+    """The map's telemetry as bench.py prints it (live and lifetime pool
+    slots, dropped, recycled), the fused share of valid depth samples, and
+    the volume's layout."""
+    cfg = gen.tsdf_cfg
+    counts = gen.volume.cell_counts.cpu().numpy()
+    frac, n_valid, dropped, recycled = gen.fusion_stats()
+    return {"pool_live_slots": int(np.minimum(counts, cfg.cell_cap).sum()), "pool_lifetime_slots": int(counts.sum()),
+            "pool_dropped": int(dropped), "pool_recycled": int(recycled), "fusion_fraction": frac,
+            "valid_samples": n_valid, "volume": {"dims": list(cfg.dims), "voxel_size": cfg.voxel_size,
+                                                 "band": cfg.band, "pool_cells": cfg.n_cells,
+                                                 "cell_cap": cfg.cell_cap, "chunk": cfg.chunk}}
+
+
+def capture_pool_splat(torch, gen):
+    """(pix, key) of the pool splat at the last frame of one more unroll
+    from the seeds: the z-buffer's input as the map built it."""
+    from sgam_neurips22_tpu_torch.mapping import tsdf
+
+    keep, orig = {}, tsdf.pool_splat_keys
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        keep["pix"], keep["key"] = out[0].clone(), out[1].clone()
+        return out
+
+    tsdf.pool_splat_keys = spy
+    try:
+        gen.reset()
+        gen.scene_expansion()
+    finally:
+        tsdf.pool_splat_keys = orig
+    torch.cuda.synchronize()
+    return keep["pix"], keep["key"]
+
+
+def last_step(torch, gen) -> dict:
+    """Device inputs of the trajectory's last step (its target pose, its
+    sources and their transforms) and that frame's depth, for timing the
+    map's functions at the phase's shapes."""
+    src, _, _, _, t2s, w2c = gen._step_inputs_host(gen.order[-1], len(gen.order) - 1)
+    tgt = gen.grid.index(*gen.order[-1])
+    dev = gen.device
+    return {"src": torch.as_tensor(src, device=dev), "t2s": torch.as_tensor(t2s, device=dev),
+            "w2c": torch.as_tensor(w2c, device=dev), "depth": gen.depth_buf[tgt]}
+
+
+def map_times(torch, gen) -> dict:
+    """Time per call of the map's functions at the phase's shapes, on a copy
+    of the volume at the phase's end: render_depth (the splat, and its
+    whole-pool projection alone), inverse_warp_multi_src and integrate
+    (into the copy). "<name>_ms" is CUDA-event time back to back (cuda_ms),
+    which holds the gaps while the host launches at batch 1;
+    "<name>_device_ms" the kernels' own summed time (device_ms)."""
+    from sgam_neurips22_tpu_torch.geometry.warp import inverse_warp_multi_src
+    from sgam_neurips22_tpu_torch.mapping.tsdf import integrate, pool_splat_keys, render_depth
+
+    vol, cfg, k, st = gen.volume.to(gen.device), gen.tsdf_cfg, gen.ks[0], last_step(torch, gen)
+    near, far = gen.near_far
+    depth = render_depth(vol, cfg, k, st["w2c"], (H, W), near, far)
+    rgb_s, depth_s = gen.rgb_buf[st["src"]][None], gen.depth_buf[st["src"]][None]
+    fns = {
+        "render_depth": lambda: render_depth(vol, cfg, k, st["w2c"], (H, W), near, far),
+        "pool_projection": lambda: pool_splat_keys(vol, cfg, k, st["w2c"][None], (H, W), near, far),
+        "inverse_warp_multi_src": lambda: inverse_warp_multi_src(rgb_s, depth_s, depth[None], gen.ks[None], k[None],
+                                                                 st["t2s"][None]),
+        "integrate": lambda: integrate(vol, cfg, st["depth"], None, k, st["w2c"]),
+    }
+    out = {"pool_slots": cfg.capacity, "pool_splat_rows": [cfg.n_cells * -(-cfg.cell_cap // cfg.chunk), cfg.chunk]}
+    for name, fn in fns.items():
+        out[f"{name}_ms"] = cuda_ms(torch, fn, 20, 2)
+        out[f"{name}_device_ms"] = device_ms(torch, fn, 20, 2)
+    return out
+
+
+def sync_free(torch, gen, failures) -> dict:
+    """render_depth (the splat) and integrate once each at the phase's
+    shapes under torch.cuda.set_sync_debug_mode("error"), which raises at
+    any call that waits for the device: the map's per-frame loop must not."""
+    from sgam_neurips22_tpu_torch.mapping.tsdf import integrate, render_depth
+
+    vol, st = gen.volume.to(gen.device), last_step(torch, gen)
+    torch.cuda.synchronize()
+    res = {"render_depth": None, "integrate": None}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, fn in (("render_depth", lambda: render_depth(vol, gen.tsdf_cfg, gen.ks[0], st["w2c"], (H, W),
+                                                                 *gen.near_far)),
+                         ("integrate", lambda: integrate(vol, gen.tsdf_cfg, st["depth"], None, gen.ks[0], st["w2c"]))):
+            try:
+                fn()
+                res[name] = "no synchronisation"
+            except RuntimeError as e:
+                res[name] = f"synchronised: {str(e)[:200]}"
+                failures.append(f"sync_free: {name} synchronised with the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return res
+
+
+def map_phase(torch, np, gen, frames: int, counters, failures, name: str, card: str) -> tuple:
+    """unroll_phase for a map-requery unroll (zbuffer_min and
+    nearest_codeword once a frame, no flash attention), with the pool
+    telemetry, the map's times alone, the sync check, and the pool splat's
+    input at the last frame: (report, profile, (pix, key))."""
+    t0 = time.perf_counter()
+    want = {"zbuffer_min": frames, "nearest_codeword": frames, "flash_attention_fwd": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0}
+    (rgb, _), rep, prof = unroll_phase(torch, gen.scene_expansion, frames, counters, want, failures, name, gen.reset)
+    rep.update(card=card, dataset=gen.cfg.dataset, grid=list(gen.cfg.output_dim),
+               sources=gen.cfg.effective_num_src, coherent_plane_depth=gen.cfg.coherent_plane_depth,
+               frames_differ=not torch.equal(rgb[gen.grid.index(*gen.order[1])], rgb[gen.grid.index(*gen.order[-1])]),
+               **pool_telemetry(np, gen))
+    if not rep["frames_differ"]:
+        failures.append(f"{name}: the first and last generated frames are equal")
+    rep["map_ms"] = map_times(torch, gen)
+    rep["sync_free"] = sync_free(torch, gen, failures)
+    pix, key = capture_pool_splat(torch, gen)
+    rep["pool_splat_shape"] = list(pix.shape)
+    rep["phase_seconds"] = time.perf_counter() - t0
+    return rep, prof, (pix, key)
+
+
+def state_equal(torch, a, b) -> dict:
+    """The integer state and telemetry of two volumes, field by field
+    (bit-exact), and the grid's largest difference and the voxels whose
+    observedness (grid != 0) differs."""
+    a_grid, b_grid = a.grid.cpu(), b.grid.cpu()
+    res = {f: torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+           for f in ("pool_ids", "cell_counts", "inpool", "claim", "frame", "stats")}
+    res.update(grid_bit_exact=torch.equal(a_grid, b_grid), grid_max_abs_diff=float((a_grid - b_grid).abs().max()),
+               grid_values_differing=int((a_grid != b_grid).sum()),
+               observedness_differing=int(((a_grid != 0) != (b_grid != 0)).sum()),
+               observed_voxels=int((b_grid != 0).sum()))
+    return res
+
+
+# map_parity's gate on the grid, card against CPU: index_add_ sums in
+# another order on the card (atomics), so a float sum may differ in its
+# last bits, and a sum that cancels may read 0 on one side alone (PERF.md:
+# at most 4.8e-7 apart, 14 of 1.7 M observed voxels flipped). The integer
+# state is held bit-exact.
+GRID_MAX_ABS_DIFF = 1e-5
+GRID_OBSERVEDNESS_SHARE = 1e-4
+
+
+def integrate_parity(torch, gen, cfg, frames: int) -> dict:
+    """The seed frame and the first `frames` generated frames of `gen`'s
+    unroll, at their poses, fused into a new volume on the card and one on
+    the CPU, f32; their states compared (state_equal)."""
+    from sgam_neurips22_tpu_torch.mapping.tsdf import create_volume, integrate
+
+    idx = [gen.grid.index(*c) for c in gen.order[: frames + 1]]
+    k = gen.ks[0]
+    vols = []
+    for dev in (gen.device, "cpu"):
+        vol = create_volume(cfg, device=dev)
+        for i in idx:
+            integrate(vol, cfg, gen.depth_buf[i].to(dev), None, k.to(dev), gen._w2c(i).to(dev))
+        vols.append(vol)
+    res = state_equal(torch, *vols)
+    res.update(frames=len(idx), integrate_stride=cfg.integrate_stride)
+    res["ok"] = (all(res[f] for f in ("pool_ids", "cell_counts", "inpool", "claim", "frame", "stats"))
+                 and res["grid_max_abs_diff"] <= GRID_MAX_ABS_DIFF
+                 and res["observedness_differing"] <= GRID_OBSERVEDNESS_SHARE * res["observed_voxels"])
+    del vols
+    return res
+
+
+def render_parity(torch, gen) -> dict:
+    """render_depth from the volume at the phase's end, on the card and on a
+    CPU copy, at the last step's pose: the pool splat's z-buffer input and
+    winners (the card's kernel against the CPU's plain version) and depth,
+    and the raycast's depth, nearest and trilinear."""
+    from sgam_neurips22_tpu_torch.mapping.tsdf import pool_splat_keys, render_depth
+    from sgam_neurips22_tpu_torch.ops.zbuffer import zbuffer_min, zbuffer_min_plain
+
+    st, near_far = last_step(torch, gen), gen.near_far
+    args = ((gen.volume, gen.tsdf_cfg, gen.ks[0], st["w2c"]),
+            (gen.volume.to("cpu"), gen.tsdf_cfg, gen.ks[0].cpu(), st["w2c"].cpu()))
+    keys = [pool_splat_keys(a[0], a[1], a[2], a[3][None], (H, W), *near_far) for a in args]
+    wins = (zbuffer_min(*keys[0][:2], H, W).cpu(), zbuffer_min_plain(*keys[1][:2], H, W))
+    res = {"splat_keys_bit_exact": all(torch.equal(keys[0][i].cpu(), keys[1][i]) for i in range(3)),
+           "zbuffer_winners_bit_exact": torch.equal(*wins)}
+    for name, kw in (("splat", {}), ("raycast_nearest", {"method": "raycast"}),
+                     ("raycast_trilinear", {"method": "raycast", "interp": "trilinear"})):
+        got, ref = (render_depth(*a, (H, W), *near_far, n_samples=gen.cfg.raycast_samples, **kw).cpu() for a in args)
+        res[name] = {"bit_exact": torch.equal(got, ref), "differing_pixel_share": float((got != ref).float().mean()),
+                     "max_abs_diff": float((got - ref).abs().max()), "hit_share": float((ref > 0).float().mean())}
+    # the gate: the z-buffer bit-exact, and every depth bit-exact (all ops
+    # are IEEE elementwise arithmetic and integer gathers on both)
+    res["ok"] = (res["splat_keys_bit_exact"] and res["zbuffer_winners_bit_exact"]
+                 and all(res[n]["bit_exact"] for n in ("splat", "raycast_nearest", "raycast_trilinear")))
+    return res
+
+
+def map_parity(torch, np, gen_clevr, gen_ge, cpu_model, seeds, failures) -> dict:
+    """The map on the card against the CPU, f32 (module docstring)."""
+    import dataclasses
+
+    from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration
+
+    res = {"integrate": {
+        "clevr": integrate_parity(torch, gen_clevr, gen_clevr.tsdf_cfg, MAP_PARITY_FRAMES),
+        "google_earth": integrate_parity(torch, gen_ge, gen_ge.tsdf_cfg, MAP_PARITY_FRAMES),
+        "google_earth_stride2": integrate_parity(torch, gen_ge, dataclasses.replace(gen_ge.tsdf_cfg, integrate_stride=2),
+                                                 MAP_PARITY_FRAMES),
+    }, "render": {"clevr": render_parity(torch, gen_clevr), "google_earth": render_parity(torch, gen_ge)},
+        "gates": {"grid_max_abs_diff": GRID_MAX_ABS_DIFF, "grid_observedness_share": GRID_OBSERVEDNESS_SHARE}}
+    # frame 1 of the f32 map-requery unroll, the CPU's map a copy of the card's
+    cfg = map_config("clevr-infinite", MAP_GRID)
+    gen = InfiniteSceneGeneration(copy.deepcopy(cpu_model), cfg, seeds, device=gen_clevr.device)
+    gen_c = InfiniteSceneGeneration(cpu_model, cfg, seeds, device="cpu")
+    gen_c.volume = gen.volume.to("cpu")
+    with torch.inference_mode():
+        batches = (gen.requery_batch(gen.build_plan(), 0), gen_c.requery_batch(gen_c.build_plan(), 0))
+    res["step"] = parity_step(torch, gen, cpu_model, failures, batches=batches)
+    del gen, gen_c
+    for group in ("integrate", "render"):
+        for name, r in res[group].items():
+            if not r["ok"]:
+                failures.append(f"map_parity {group} {name}: {r}")
+    res["ok"] = res["step"]["ok"] and all(r["ok"] for g in ("integrate", "render") for r in res[g].values())
+    return res
+
+
+def check_zbuffer_map(torch, cases: dict, failures) -> list:
+    """The z-buffer merge at the map's own shapes, on the (pix, key) that
+    the pool splat built at a phase's last frame: bit-exact against the
+    plain version on the route zbuffer_plan picks and on each route alone,
+    with the time of the whole call, of each route (ms and kernels alone),
+    of the plain version and of scatter_reduce amin, and the byte bound."""
+    from sgam_neurips22_tpu_torch.ops.zbuffer import (
+        IMAX, ROUTES, _launch, route_plan, zbuffer_min, zbuffer_min_plain, zbuffer_plan)
+
+    rows = []
+    for name, (pix, key) in cases.items():
+        b, p = pix.shape
+        ref = zbuffer_min_plain(pix, key, H, W)
+        outs = {"plan": zbuffer_min(pix, key, H, W),
+                **{r: _launch(pix, key, H, W, route_plan(r, b, p, H, W)) for r in ROUTES}}
+        torch.cuda.synchronize()
+        exact = {r: torch.equal(o, ref) for r, o in outs.items()}
+        base, idx = torch.full((b, H * W), IMAX, dtype=torch.int32, device=pix.device), pix.long()
+        b_ms, b_by = bound(2 * 4 * b * p + 4 * b * H * W, 0)
+        row = {
+            "case": name, "shape": {"pix": [b, p], "pixels": H * W}, **zbuffer_plan(b, p, H, W)._asdict(),
+            "ok": all(exact.values()), "bit_exact": exact["plan"], "routes_bit_exact": exact,
+            "max_abs_err": max(int((o.long() - ref.long()).abs().max()) for o in outs.values()),
+            "valid_points": int((key != IMAX).sum()),
+            **timings(torch, lambda: zbuffer_min(pix, key, H, W), lambda: zbuffer_min_plain(pix, key, H, W),
+                      lambda: torch.scatter_reduce(base, 1, idx, key, "amin")),
+            "route_ms": {r: device_ms(torch, lambda r=r: _launch(pix, key, H, W, route_plan(r, b, p, H, W)))
+                         for r in ROUTES},
+            "route_kernel_only_ms": {r: device_ms(torch, lambda r=r: _launch(pix, key, H, W, route_plan(r, b, p, H, W)),
+                                                  match=ZB_KERNELS) for r in ROUTES},
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": 2 * 4 * b * p + 4 * b * H * W,
+        }
+        row["bound_share"] = b_ms / row["ms"]
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"zbuffer_min differs from zbuffer_min_plain at the map's shape {name}: {row}")
+    return rows
+
+
 def seed_frames(np, rng, depth_range=(8, 14)) -> list:
     """One scene's seeds: a random frame at grid (0, 0), depths uniform in
     depth_range (bench.py's: (8, 14) for clevr-infinite, (0.5, 4.0) for
@@ -1542,23 +1847,74 @@ def main(argv=None) -> int:
                   phase_seconds=time.perf_counter() - t0)
     paths["google_earth"] = ge_rep["launches"]
     emit({"phase": "google_earth", **ge_rep})
-    del gen_ge, ge_model
+    del gen_ge
     torch.cuda.empty_cache()
 
-    # 12. the conditional-generation training step, batch 16
+    # 12. map re-query at bf16 (bench.py --config integration): CLEVR on a
+    #     3x3 grid, seed depth U(8, 14); each phase also times the map alone,
+    #     runs it once under sync debug mode "error" and keeps the pool
+    #     splat's z-buffer input at its last frame
+    map_keys = {}
+    gen_map = InfiniteSceneGeneration(copy.deepcopy(cpu_model16), map_config("clevr-infinite", MAP_GRID), seeds,
+                                      device="cuda")
+    map_frames = gen_map.grid.size - 1
+    tsdf_rep, report["profile_unroll_tsdf"], map_keys["map_clevr_last_frame"] = map_phase(
+        torch, np, gen_map, map_frames, counters, failures, "unroll_tsdf", card)
+    paths["unroll_tsdf"] = tsdf_rep["launches"]
+    emit({"phase": "unroll_tsdf", **tsdf_rep})
+    emit({"phase": "map_ms", "unroll_tsdf": tsdf_rep["map_ms"], "card": card})
+
+    # 13. google_earth's map re-query at bf16 (bench.py --config google_earth
+    #     --rgbd_integration): 25 x 1, 24 frames (cut from 100), 3 sources,
+    #     codebook 4096, seed depth U(0.5, 4.0); its 2^20-slot pool recycles
+    ge_seeds = seed_frames(np, rng, (0.5, 4.0))
+    gen_ge_map = InfiniteSceneGeneration(ge_model, map_config("google_earth", (FRAMES + 1, 1)), ge_seeds,
+                                         device="cuda")
+    ge_tsdf_rep, report["profile_unroll_tsdf_ge"], map_keys["map_google_earth_last_frame"] = map_phase(
+        torch, np, gen_ge_map, FRAMES, counters, failures, "unroll_tsdf_ge", card)
+    paths["unroll_tsdf_ge"] = ge_tsdf_rep["launches"]
+    emit({"phase": "unroll_tsdf_ge", **ge_tsdf_rep})
+
+    # 14. the same with coherent_plane_depth: every frame's depth, the seed's
+    #     too, is one world plane's (bench.py --coherent)
+    gen_coh = InfiniteSceneGeneration(ge_model, map_config("google_earth", (FRAMES + 1, 1), coherent=True), ge_seeds,
+                                      device="cuda")
+    gen_coh.reset([((0, 0), ge_seeds[0][1], gen_coh.plane_depth_at(0))])
+    coh_rep, report["profile_unroll_tsdf_ge_coherent"], _ = map_phase(
+        torch, np, gen_coh, FRAMES, counters, failures, "unroll_tsdf_ge_coherent", card)
+    paths["unroll_tsdf_ge_coherent"] = coh_rep["launches"]
+    emit({"phase": "unroll_tsdf_ge_coherent", **coh_rep})
+    emit({"phase": "map_ms", "unroll_tsdf_ge": ge_tsdf_rep["map_ms"], "unroll_tsdf_ge_coherent": coh_rep["map_ms"],
+          "card": card})
+    del gen_coh
+    torch.cuda.empty_cache()
+
+    # 15. the map on the card against the CPU, f32, and the z-buffer at the
+    #     map's own shapes
+    t0 = time.perf_counter()
+    parity_map = map_parity(torch, np, gen_map, gen_ge_map, cpu_model, seeds, failures)
+    emit({"phase": "map_parity", "seconds": time.perf_counter() - t0, **parity_map})
+    t0 = time.perf_counter()
+    zb_map = check_zbuffer_map(torch, map_keys, failures)
+    kernels[0]["shapes"].extend(zb_map)
+    emit({"phase": "zbuffer_map_shapes", "seconds": time.perf_counter() - t0, "shapes": zb_map})
+    del gen_map, gen_ge_map, ge_model, map_keys
+    torch.cuda.empty_cache()
+
+    # 16. the conditional-generation training step, batch 16
     t0 = time.perf_counter()
     train, report["profile_train"] = run_train(torch, np, counters, failures)
     train["phase_seconds"] = time.perf_counter() - t0
     paths["train"] = train["launches"]
     emit({"phase": "train", **train, "card": card})
 
-    # 13. one training step at batch 2 on the card against the CPU
+    # 17. one training step at batch 2 on the card against the CPU
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     parity_t = parity_train(torch, np, failures)
     emit({"phase": "parity_train", "seconds": time.perf_counter() - t0, **parity_t})
 
-    # 14. the same training step with a bf16 model (train_conditional_bf16),
+    # 18. the same training step with a bf16 model (train_conditional_bf16),
     #     then its batch-2 step on the card against the CPU
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1581,8 +1937,9 @@ def main(argv=None) -> int:
     report.update(kernels=kernels, unroll=unroll_rep, parity=parity, unroll_batched=batched,
                   parity_batched=parity_b, unroll_bf16=bf16_rep, parity_bf16=parity16,
                   unroll_batched_bf16=batched16, parity_batched_bf16=parity16_b, stride2=stride2, topk=topk,
-                  google_earth=ge_rep, train=train, parity_train=parity_t, train_bf16=train16,
-                  parity_train_bf16=parity_t16, profiler_misses=PROFILER_MISSES, failures=failures,
+                  google_earth=ge_rep, unroll_tsdf=tsdf_rep, unroll_tsdf_ge=ge_tsdf_rep,
+                  unroll_tsdf_ge_coherent=coh_rep, map_parity=parity_map, train=train, parity_train=parity_t,
+                  train_bf16=train16, parity_train_bf16=parity_t16, profiler_misses=PROFILER_MISSES, failures=failures,
                   seconds=time.perf_counter() - t_start)
     emit({"phase": "profiler", "misses": len(PROFILER_MISSES), "calls": sorted(set(PROFILER_MISSES))})
     if args.out:

@@ -7,8 +7,10 @@ package imports torch, numpy and the standard library only.
 Slices covered: the splat-conditioned flythrough unroll, for one scene and
 for S scenes at once (`pipeline.scene_generation.InfiniteSceneGeneration`;
 f32 or bf16, clevr-infinite or google_earth, every splat collision rule
-and stride, top-k sampling), and the two-optimizer GAN training step
-(`training.train_step`), with
+and stride, top-k sampling), map-requery generation for one scene
+(`SceneGenConfig(use_rgbd_integration=True)`: the TSDF map of
+`mapping.tsdf` and the inverse warp of `geometry.warp`), and the
+two-optimizer GAN training step (`training.train_step`), with
 hand-written CUDA kernels for the z-buffer merge (`ops.zbuffer`), the
 codeword search (`ops.vq`) and the flash attention forward and backward
 (`ops.attention`). Entry points run on `cuda` unless the caller passes

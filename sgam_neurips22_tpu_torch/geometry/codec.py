@@ -6,6 +6,8 @@ from dataclasses import dataclass
 
 import torch
 
+from sgam_neurips22_tpu_torch.core.dtypes import div_scalar
+
 
 @dataclass(frozen=True)
 class DepthCodec:
@@ -23,12 +25,7 @@ class DepthCodec:
         if self.clip_eps is not None:
             d = torch.clamp(d, min=self.clip_eps)
         inv = 1.0 / (d + self.shift)
-        # divide by a tensor: CUDA divides by a Python-scalar divisor by
-        # multiplying with its reciprocal, which rounds differently from the
-        # CPU and from XLA's true division
-        span = torch.full_like(inv, self.inv_lo - self.inv_hi)
-        unit = (inv - self.inv_hi) / span
-        return 2.0 * unit - 1.0
+        return 2.0 * div_scalar(inv - self.inv_hi, self.inv_lo - self.inv_hi) - 1.0
 
     def encode_masked(self, depth: torch.Tensor, extrapolation_mask: torch.Tensor) -> torch.Tensor:
         return torch.where(extrapolation_mask, -2.0, self.encode(depth))

@@ -34,24 +34,34 @@ class ZbufferPlan(NamedTuple):
     tile_rows: int  # tile: rows of the window
 
 
-def zbuffer_plan(b: int, p: int, h: int, w: int) -> ZbufferPlan:
-    """The route and launch shape for pix, key [b, p] over an h x w image.
+def route_plan(route: str, b: int, p: int, h: int, w: int) -> ZbufferPlan:
+    """The launch shape of `route` for pix, key [b, p] over an h x w image.
 
     tile: TILE_BLOCKS blocks over the batch (at least one an image), each
     with a window of as many rows as TILE_BYTES holds; a point range of
     whole h*w images is taken as that many sources, each block one part of
-    each. The tile route is taken where a block's points number at least a
-    quarter of its window's pixels, so that filling and scanning the window
-    costs less than the L2 atomics it saves (measured, PERF.md: the
-    8-scene unroll, the training step, the pool splat; a batch of one
-    splat, google_earth and a 1024^2 image take the l2 route)."""
+    each. l2: L2_BLOCKS blocks over the batch."""
     n, b = h * w, max(b, 1)
-    rows = min(h, TILE_BYTES // (4 * w))
-    parts = max(1, TILE_BLOCKS // b)
-    if rows >= 1 and 4 * (p // parts) >= rows * w:
+    if route == "tile":
         segments = p // n if p >= n and p % n == 0 else 1
-        return ZbufferPlan("tile", parts, segments, rows)
+        return ZbufferPlan("tile", max(1, TILE_BLOCKS // b), segments, min(h, TILE_BYTES // (4 * w)))
+    if route != "l2":
+        raise ValueError(f"unknown z-buffer route {route!r}")
     return ZbufferPlan("l2", max(1, -(-L2_BLOCKS // b)), 1, 0)
+
+
+def zbuffer_plan(b: int, p: int, h: int, w: int) -> ZbufferPlan:
+    """The route and launch shape for pix, key [b, p] over an h x w image:
+    the tile route where a block's points number at least a quarter of its
+    window's pixels, so that filling and scanning the window costs less
+    than the L2 atomics it saves (measured, PERF.md: the 8-scene unroll,
+    the training step, the 8-scene pool splat; a batch of one splat,
+    google_earth, a 1024^2 image and the batch-1 map's pool splats take
+    the l2 route)."""
+    tile = route_plan("tile", b, p, h, w)
+    if tile.tile_rows >= 1 and 4 * (p // tile.parts) >= tile.tile_rows * w:
+        return tile
+    return route_plan("l2", b, p, h, w)
 
 
 def zbuffer_min_plain(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -86,8 +96,16 @@ def zbuffer_min(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> torch.T
         raise ValueError(f"zbuffer_min: pix on {pix.device}, key on {key.device}")
     if not (pix.is_contiguous() and key.is_contiguous()):
         raise ValueError("zbuffer_min takes contiguous pix and key")
+    out = _launch(pix, key, h, w, zbuffer_plan(*pix.shape, h, w))
+    zbuffer_min.launches += 1
+    return out
+
+
+def _launch(pix: torch.Tensor, key: torch.Tensor, h: int, w: int, plan: ZbufferPlan) -> torch.Tensor:
+    """One launch of the kernels on `plan`'s route, for CUDA tensors that
+    zbuffer_min has checked (or chip_smoke's timing of both routes at one
+    shape); counts nothing."""
     b, p = pix.shape
-    plan = zbuffer_plan(b, p, h, w)
     out = torch.full((b, h * w), IMAX, dtype=torch.int32, device=pix.device)
     lib = cuda_build.library("zbuffer_min", _SIGNATURES)
     with torch.cuda.device(pix.device):
@@ -97,7 +115,6 @@ def zbuffer_min(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> torch.T
             plan.parts, plan.segments, plan.tile_rows, stream,
         )
     cuda_build.check(rc, "zbuffer_min")
-    zbuffer_min.launches += 1
     return out
 
 

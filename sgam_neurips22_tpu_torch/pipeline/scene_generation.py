@@ -1,15 +1,20 @@
-"""Infinite scene generation, splat-conditioned — port of the splat path of
-`sgam_neurips22_tpu/pipeline/scene_generation.py`, for one scene
-(`scene_expansion`) and for S scenes at once (`scene_expansion_batched`).
+"""Infinite scene generation — port of
+`sgam_neurips22_tpu/pipeline/scene_generation.py`: splat conditioning for
+one scene (`scene_expansion`) and for S scenes at once
+(`scene_expansion_batched`), and map re-query (`use_rgbd_integration`)
+for one scene.
 
 The plan (per-step target, sources, relative transforms) is built on the
 host from the pose grid and uploaded once; the unroll is one loop over it
-in which every frame stays on the device: source gather -> splat
-conditioning -> encode -> nearest codeword (or a top-k draw) -> decode ->
-depth decode -> write into the [G, H, W, 3] RGB and [G, H, W] depth
-buffers, updated in place. The batched unroll keeps S scenes' buffers
-flat, [S*G, ...], shares the plan across scenes and runs the model at
-batch S with flash attention.
+in which every frame stays on the device: source gather -> conditioning
+-> encode -> nearest codeword (or a top-k draw) -> decode -> depth decode
+-> write into the [G, H, W, 3] RGB and [G, H, W] depth buffers, updated in
+place. The splat conditioning splats the sources; map re-query renders the
+target depth from the TSDF map (`mapping.tsdf`), warps the sources into
+the target view through it (`geometry.warp.inverse_warp_multi_src`), and
+fuses each new frame into the map. The batched unroll keeps S scenes'
+buffers flat, [S*G, ...], shares the plan across scenes and runs the model
+at batch S with flash attention.
 """
 from __future__ import annotations
 
@@ -21,8 +26,20 @@ import numpy as np
 import torch
 
 from sgam_neurips22_tpu_torch.core.device import resolve_device
+from sgam_neurips22_tpu_torch.geometry.camera import plane_z_depth
 from sgam_neurips22_tpu_torch.geometry.codec import get_codec
 from sgam_neurips22_tpu_torch.geometry.splat import COLLISIONS
+from sgam_neurips22_tpu_torch.geometry.warp import inverse_warp_multi_src
+from sgam_neurips22_tpu_torch.mapping.tsdf import (
+    CLAIM_MAX_FRAMES,
+    TSDFConfig,
+    auto_config,
+    create_volume,
+    fusion_fraction,
+    integrate,
+    render_depth,
+    validate_ray_budget,
+)
 from sgam_neurips22_tpu_torch.models.conditioning import get_x
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
 from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
@@ -31,6 +48,12 @@ from sgam_neurips22_tpu_torch.pipeline.trajectory import default_intrinsics, pre
 
 # reference num_src defaults (inference_pipeline.py:68,90)
 DEFAULT_NUM_SRC = {"clevr-infinite": 5, "google_earth": 3}
+# reference TSDF parameters (inference_pipeline.py:120-131); google_earth
+# also caps its surface pool at 2^20 slots
+DEFAULT_TSDF = {
+    "clevr-infinite": dict(voxel_size=0.05, sdf_trunc=0.5),
+    "google_earth": dict(voxel_size=0.01, sdf_trunc=0.03, pool_capacity=1 << 20),
+}
 
 
 @dataclass(frozen=True)
@@ -50,13 +73,35 @@ class SceneGenConfig:
     # (geometry.splat.render_projection_from_srcs); 1 = every pixel, as the
     # reference
     splat_stride: int = 1
+    # map re-query conditioning instead of the splat (one scene at a time),
+    # and its TSDF map (mapping.tsdf; the JAX package's SceneGenConfig
+    # documents each knob's measurements):
+    use_rgbd_integration: bool = False
+    tsdf_voxel_size: Optional[float] = None  # None = the dataset's (DEFAULT_TSDF)
+    tsdf_dims: Optional[Tuple[int, int, int]] = None  # None = auto-sized from the trajectory
+    tsdf_origin: Optional[Tuple[float, float, float]] = None  # None = centred on the trajectory
+    tsdf_mem_cap_gb: float = 6.0  # the auto-sized volume's memory cap
+    tsdf_pool_capacity: Optional[int] = None  # None = auto from the volume
+    tsdf_pool_recycle: bool = True  # a full pool cell recycles its oldest slots
+    tsdf_integrate_stride: int = 1  # fuse every s-th ray
+    tsdf_band_voxels: Optional[int] = None  # fused band half-width (None = auto, <= 8)
+    tsdf_render_chunk: Optional[int] = None  # the pool splat's sub-chunk (None = TSDFConfig's)
+    tsdf_pool_cells: Optional[int] = None  # spatial pool cells (None = auto)
+    # replace the generated depth by the analytic depth of one world plane,
+    # so that every frame agrees with every other and the map converges as
+    # with trained weights (the bench's --coherent); the model still runs
+    coherent_plane_depth: bool = False
+    raycast_samples: int = 192
+    requery_method: str = "splat"  # "splat" (the surface pool) or "raycast"
+    raycast_interp: str = "nearest"  # the raycast's grid sampling: "nearest" or "trilinear"
 
     def __post_init__(self):
         if self.collision not in COLLISIONS:
             raise ValueError(f"unknown collision mode {self.collision!r}")
         s = int(self.splat_stride)
         h, w = self.image_resolution
-        if self.collision == "nearest":
+        # map re-query never splats, so the packed key's point budget does not apply
+        if self.collision == "nearest" and not self.use_rgbd_integration:
             # the packed z-buffer key holds 19 bits of point index
             pts = self.effective_num_src * (h // s) * (w // s)
             if pts >= (1 << 19):
@@ -83,6 +128,37 @@ class SceneGenConfig:
     @property
     def effective_num_src(self) -> int:
         return self.num_src or DEFAULT_NUM_SRC[self.dataset]
+
+
+def _tsdf_config(cfg: SceneGenConfig, grid, depth_range: Tuple[float, float]) -> TSDFConfig:
+    """The map's TSDFConfig: the dataset's voxel and truncation (a given
+    voxel keeps the dataset's truncation ratio), placed by tsdf_dims and
+    tsdf_origin, or sized to hold the trajectory's frusta (auto_config)."""
+    base = dict(DEFAULT_TSDF[cfg.dataset])
+    if cfg.tsdf_voxel_size is not None:
+        ref = DEFAULT_TSDF[cfg.dataset]
+        base["voxel_size"] = cfg.tsdf_voxel_size
+        base["sdf_trunc"] = cfg.tsdf_voxel_size * ref["sdf_trunc"] / ref["voxel_size"]
+    validate_ray_budget(cfg.image_resolution, cfg.tsdf_integrate_stride)
+    chunk = {} if cfg.tsdf_render_chunk is None else {"render_chunk": cfg.tsdf_render_chunk}
+    if cfg.tsdf_dims is not None:
+        origin = cfg.tsdf_origin
+        if origin is None:  # centre the volume on the trajectory's cameras
+            extent = np.asarray(cfg.tsdf_dims) * base["voxel_size"]
+            origin = tuple(grid.position.mean(axis=0) - extent / 2)
+        return TSDFConfig(
+            dims=cfg.tsdf_dims, voxel_size=base["voxel_size"], sdf_trunc=base["sdf_trunc"], origin=origin,
+            pool_capacity=cfg.tsdf_pool_capacity or base.get("pool_capacity", 1 << 19),
+            pool_recycle=cfg.tsdf_pool_recycle, integrate_stride=cfg.tsdf_integrate_stride,
+            band_voxels=cfg.tsdf_band_voxels, pool_cells=cfg.tsdf_pool_cells, **chunk,
+        )
+    return auto_config(
+        np.stack([grid.c2w(i) for i in range(grid.size)]), grid.K, cfg.image_resolution, depth_range,
+        voxel_size=base["voxel_size"], sdf_trunc=base["sdf_trunc"], mem_cap_bytes=cfg.tsdf_mem_cap_gb * 1e9,
+        pool_capacity=cfg.tsdf_pool_capacity or base.get("pool_capacity"),
+        integrate_stride=cfg.tsdf_integrate_stride, band_voxels=cfg.tsdf_band_voxels,
+        render_chunk=cfg.tsdf_render_chunk, pool_recycle=cfg.tsdf_pool_recycle, pool_cells=cfg.tsdf_pool_cells,
+    )
 
 
 class InfiniteSceneGeneration:
@@ -118,23 +194,63 @@ class InfiniteSceneGeneration:
             np.tile(self.grid.K.astype(np.float32), (cfg.effective_num_src, 1, 1)),
             device=self.device,
         )
+        self.tsdf_cfg: Optional[TSDFConfig] = None
+        self.volume = None
+        if cfg.use_rgbd_integration:
+            self.tsdf_cfg = _tsdf_config(cfg, self.grid, self.codec.depth_range)
+        if cfg.coherent_plane_depth:
+            # the world plane along the first camera's axis at mid depth range
+            c2w0 = self.grid.c2w(0)
+            n_w = c2w0[:3, 2] / np.linalg.norm(c2w0[:3, 2])
+            d_mid = float(np.mean(self.codec.depth_range))
+            self._plane_n = torch.as_tensor(n_w, dtype=torch.float32, device=self.device)
+            self._plane_d = torch.tensor(float(n_w @ (c2w0[:3, 3] + d_mid * n_w)), dtype=torch.float32,
+                                         device=self.device)
         self._seeds = seeds
         self._plan_key = None
         self.reset()
 
+    @property
+    def near_far(self) -> Tuple[float, float]:
+        """The map's render and plane-depth bounds: half the codec's near
+        and 1.5 times its far."""
+        lo, hi = self.codec.depth_range
+        return max(lo * 0.5, 1e-3), hi * 1.5
+
+    def plane_depth_at(self, idx: int) -> np.ndarray:
+        """[H, W] analytic z-depth of the coherent plane at grid pose `idx`
+        (coherent_plane_depth; for seed frames on the same plane)."""
+        return self._plane_depth(self._w2c(idx)).cpu().numpy()
+
+    def _plane_depth(self, w2c: torch.Tensor) -> torch.Tensor:
+        return plane_z_depth(self.ks[0], w2c, self._plane_n, self._plane_d, self.cfg.image_resolution,
+                             *self.near_far)
+
+    def _w2c(self, idx: int) -> torch.Tensor:
+        return torch.as_tensor(self.grid.w2c(idx).astype(np.float32), device=self.device)
+
     def reset(self, seeds: Optional[list] = None) -> None:
-        """(Re)initialise the frame buffers and visited state from the seeds."""
+        """(Re)initialise the frame buffers and visited state from the seeds;
+        under map re-query, a new map into which each seed frame is fused."""
         if seeds is not None:
             self._seeds = seeds
         self.rgb_buf, self.depth_buf = self.batched_buffers([self._seeds])
         self.grid.visited[:] = False
+        if self.cfg.use_rgbd_integration:
+            self.volume = None  # free the old map first
+            self.volume = create_volume(self.tsdf_cfg, device=self.device)
         for coord, _, _ in self._seeds:
-            self.grid.visited[self.grid.index(*coord)] = True
+            idx = self.grid.index(*coord)
+            self.grid.visited[idx] = True
+            if self.volume is not None:
+                integrate(self.volume, self.tsdf_cfg, self.depth_buf[idx], self.rgb_buf[idx], self.ks[0],
+                          self._w2c(idx))
         self.curr = 1
 
     def _step_inputs_host(self, tgt_coord, curr):
         """Numpy inputs of the `curr`-th step: source indices padded to
-        num_src (+ mask) and source->target relative transforms."""
+        num_src (+ mask), source->target relative transforms, the
+        target->source transforms and the target's world->camera pose."""
         n = self.cfg.effective_num_src
         src_coords = select_sources(self.grid, self.order, curr, tgt_coord, n, self.cfg.dataset)
         idxs = [self.grid.index(*c) for c in src_coords]
@@ -144,11 +260,13 @@ class InfiniteSceneGeneration:
         t_tgt = self.grid.w2c(self.grid.index(*tgt_coord))
         r_rels = np.zeros((n, 3, 3), np.float32)
         t_rels = np.zeros((n, 3), np.float32)
+        t_tgt2srcs = np.zeros((n, 4, 4), np.float32)
         for i, idx in enumerate(pad):
             t_rel = t_tgt @ np.linalg.inv(self.grid.w2c(idx))
             r_rels[i] = t_rel[:3, :3]
             t_rels[i] = t_rel[:3, 3]
-        return np.asarray(pad, np.int64), mask, r_rels, t_rels
+            t_tgt2srcs[i] = np.linalg.inv(t_rel)
+        return np.asarray(pad, np.int64), mask, r_rels, t_rels, t_tgt2srcs, t_tgt.astype(np.float32)
 
     def build_plan(self) -> dict:
         """The whole unroll's plan: per step the target index (host ints)
@@ -167,9 +285,10 @@ class InfiniteSceneGeneration:
                 self.grid.visited[steps[-1][0]] = True
         finally:
             self.grid.visited = visited
-        tgt, src_idx, mask, r_rels, t_rels = (list(x) for x in zip(*steps)) if steps else ([],) * 5
-        plan = {"tgt": tgt}
-        for name, arrs in (("src_idx", src_idx), ("src_mask", mask), ("r_rels", r_rels), ("t_rels", t_rels)):
+        names = ("src_idx", "src_mask", "r_rels", "t_rels", "t_tgt2srcs", "tgt_w2c")
+        cols = [list(x) for x in zip(*steps)] if steps else [[]] * (len(names) + 1)
+        plan = {"tgt": cols[0]}
+        for name, arrs in zip(names, cols[1:]):
             plan[name] = torch.as_tensor(np.stack(arrs), device=self.device) if arrs else None
         self._plan_key, self._plan = key, plan
         return plan
@@ -214,6 +333,26 @@ class InfiniteSceneGeneration:
         xrec = res.xrec[:, 0]  # sample 0
         return torch.clamp(xrec[..., :3], -1.0, 1.0), self.codec.decode(xrec[..., 3])
 
+    def requery_batch(self, plan: dict, t: int) -> dict:
+        """The NHWC conditioning batch of map-requery step t: the target
+        depth rendered from the map at the target pose, and the sources
+        warped into the target view through it (every padded source, as
+        the JAX pipeline: a repeated source changes no winner)."""
+        h, w = self.cfg.image_resolution
+        tgt_w2c, src_idx = plan["tgt_w2c"][t], plan["src_idx"][t]
+        tgt_depth = render_depth(
+            self.volume, self.tsdf_cfg, self.ks[0], tgt_w2c, (h, w), *self.near_far,
+            n_samples=self.cfg.raycast_samples, method=self.cfg.requery_method, interp=self.cfg.raycast_interp,
+        )
+        warped = inverse_warp_multi_src(self.rgb_buf[src_idx][None], self.depth_buf[src_idx][None], tgt_depth[None],
+                                        self.ks[None], self.ks[0][None], plan["t_tgt2srcs"][t][None])
+        return {
+            "dst_img": torch.zeros((1, h, w, 3), device=self.device),
+            "dst_depth": torch.full((1, h, w), self.codec.depth_range[0], device=self.device),
+            "warped_tgt_features": warped,
+            "warped_tgt_depth": tgt_depth[None],
+        }
+
     def _unroll(self, plan: dict, rgb_flat, depth_flat, generator: Optional[torch.Generator]) -> None:
         """Every step of the plan for all scenes of the flat buffers, which
         take each new frame in place at s*G + tgt. At topk > 1 the steps
@@ -229,15 +368,64 @@ class InfiniteSceneGeneration:
             rgb_flat[dst] = rgb
             depth_flat[dst] = depth
 
+    def _unroll_requery(self, plan: dict, generator: Optional[torch.Generator]) -> None:
+        """The map-requery unroll of this generator's scene: per step render,
+        warp, decode, write the frame (its depth the coherent plane's under
+        coherent_plane_depth), then fuse it into the map. No step reads a
+        device value on the host."""
+        if generator is None and self.cfg.topk > 1:
+            generator = torch.Generator(device=self.device).manual_seed(3)
+        for t, tgt in enumerate(plan["tgt"]):
+            rgb, depth = self.decode_batch(get_x(self.requery_batch(plan, t), self.cfg.dataset), generator)
+            rgb, depth = rgb[0], depth[0]
+            if self.cfg.coherent_plane_depth:
+                depth = self._plane_depth(plan["tgt_w2c"][t])
+            self.rgb_buf[tgt] = rgb
+            self.depth_buf[tgt] = depth
+            integrate(self.volume, self.tsdf_cfg, depth, (rgb + 1.0) / 2.0, self.ks[0], plan["tgt_w2c"][t])
+
     @torch.inference_mode()
     def scene_expansion(self, generator: Optional[torch.Generator] = None):
         """Unroll the rest of the grid. Returns the (rgb [G, H, W, 3],
         depth [G, H, W]) device buffers. `generator` (on the device) draws
-        the samples at topk > 1; topk=1 draws nothing."""
-        self._unroll(self.build_plan(), self.rgb_buf, self.depth_buf, generator)
+        the samples at topk > 1; topk=1 draws nothing. Under map
+        re-query, the map (`volume`) holds every frame at the end, and a
+        warning reports truncation, pool drops or recycling."""
+        if self.cfg.use_rgbd_integration:
+            self._unroll_requery(self.build_plan(), generator)
+        else:
+            self._unroll(self.build_plan(), self.rgb_buf, self.depth_buf, generator)
         self.grid.visited[:] = True
         self.curr = len(self.order)
+        self._check_fusion()
         return self.rgb_buf, self.depth_buf
+
+    def fusion_stats(self) -> Tuple[float, float, float, float]:
+        """(fused / valid fraction, valid depth samples, pool drops, pool
+        recycles) of the map; (1, 0, 0, 0) without one."""
+        if self.volume is None:
+            return 1.0, 0.0, 0.0, 0.0
+        return fusion_fraction(self.volume)
+
+    def _check_fusion(self) -> None:
+        """Warn where the map truncated the scene, dropped or recycled pool
+        slots, or outran the claim key's frame count."""
+        if self.volume is None:
+            return
+        frac, n_valid, dropped, recycled = self.fusion_stats()
+        cap = self.tsdf_cfg.pool_capacity
+        if n_valid > 0 and frac < 0.99:
+            warnings.warn(f"only {frac:.1%} of {n_valid:.0f} valid depth samples landed inside the TSDF volume "
+                          f"(dims={self.tsdf_cfg.dims}, origin={self.tsdf_cfg.origin}): the map truncates the scene")
+        if dropped > 0:
+            warnings.warn(f"surface-voxel pool overflowed ({dropped:.0f} candidates dropped; capacity {cap}); "
+                          "raise tsdf_pool_capacity")
+        if recycled > 0:
+            warnings.warn(f"surface-voxel pool wrapped: {recycled:.0f} oldest slots recycled (capacity {cap}); "
+                          "raise tsdf_pool_capacity to keep the whole history resident")
+        if int(self.volume.frame) >= CLAIM_MAX_FRAMES:
+            warnings.warn(f"volume integrated {int(self.volume.frame)} frames >= claim-key capacity "
+                          f"{CLAIM_MAX_FRAMES}; pool dedup degrades beyond that: start a fresh volume")
 
     @torch.inference_mode()
     def scene_expansion_batched(self, seeds_batch: list, generator: Optional[torch.Generator] = None):
@@ -254,6 +442,11 @@ class InfiniteSceneGeneration:
         Returns:
           (rgb [S, G, H, W, 3], depth [S, G, H, W]) on the device.
         """
+        if self.cfg.use_rgbd_integration:
+            raise NotImplementedError(
+                "batched map re-query (use_rgbd_integration with scene_expansion_batched) is not ported yet "
+                "(ROADMAP.md, queue item 1.2); run scene_expansion per scene"
+            )
         rgb_flat, depth_flat = self.batched_buffers(seeds_batch)
         self._unroll(self.build_plan(), rgb_flat, depth_flat, generator)
         h, w = self.cfg.image_resolution

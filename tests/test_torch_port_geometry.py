@@ -143,5 +143,13 @@ def test_get_x_matches_jax():
     assert _agree(ours.x.numpy(), np.asarray(ref.x)) >= 0.999
     np.testing.assert_allclose(ours.x_dst.numpy(), np.asarray(ref.x_dst), atol=1e-6)
     assert _agree(ours.extrapolation_mask.numpy(), np.asarray(ref.extrapolation_mask)) >= 0.999
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_x({**{k: t(v) for k, v in batch.items()}, "warped_tgt_features": None}, "clevr-infinite")
+    # map re-query: the warped target view replaces the splat; depth <= 0
+    # (map holes, here every 5th pixel) is extrapolated
+    warped_depth = batch["dst_depth"][::-1].copy()
+    warped_depth[:, ::5] = 0.0
+    requery = {"dst_img": batch["dst_img"], "dst_depth": batch["dst_depth"],
+               "warped_tgt_features": feats[:, 0], "warped_tgt_depth": warped_depth}
+    ours = get_x({k: t(v) for k, v in requery.items()}, "clevr-infinite")
+    ref = j_get_x({k: jnp.asarray(v) for k, v in requery.items()}, "clevr-infinite")
+    np.testing.assert_array_equal(ours.extrapolation_mask.numpy(), np.asarray(ref.extrapolation_mask))
+    np.testing.assert_allclose(ours.x.numpy(), np.asarray(ref.x), atol=1e-6)
