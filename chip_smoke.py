@@ -51,16 +51,38 @@ the device's idle share):
   the fused share of depth samples, times the map's functions alone
   (map_ms) and runs integrate and render_depth once under
   torch.cuda.set_sync_debug_mode("error");
+- integration_clevr_stride2: bench.py's integration_clevr_stride2, the
+  CLEVR map phase with every second ray fused (--tsdf_stride 2), on a 2x2
+  grid (3 frames, cut from 8 for time);
+- unroll_tsdf_batched: bench.py's batched_8_scenes_tsdf, map re-query for
+  8 scenes at once in bf16 (CLEVR 7x7, 48 frames a scene, 5 sources, one
+  batched volume of 8 maps): one z-buffer and one codeword launch and 7
+  flash-attention launches a step, each scene's pool telemetry and the
+  volume's bytes; the pool splat's input at its last frame is kept for the
+  z-buffer check;
 - map_parity (f32): integrate's state on the card against the CPU (the
   seed and 3 generated frames; CLEVR, and google_earth at stride 1 and 2):
   the integer state bit-exact, the grid within GRID_MAX_ABS_DIFF with at
   most GRID_OBSERVEDNESS_SHARE of observed voxels changing observedness;
   render_depth (splat, raycast nearest and trilinear) from one volume on
   both: the splat's keys, z-buffer winners and every depth bit-exact; and
-  frame 1 of the map-requery unroll under parity's gates; then the
-  z-buffer on the keys the pool splat built at the last frame of
-  unroll_tsdf ([3, 204960]) and unroll_tsdf_ge ([4, 262144]), bit-exact on
-  both routes, each route timed beside scatter_reduce;
+  frame 1 of the map-requery unroll under parity's gates; then
+  parity_map_batched, one batched map-requery step of 2 scenes card
+  against CPU in f32 and bf16 (parity's and parity_bf16's gates) and the
+  volume after it; then the z-buffer on the keys the pool splat built at
+  the last frame of unroll_tsdf ([3, 204960]), unroll_tsdf_ge ([4, 262144])
+  and unroll_tsdf_batched ([24, 226464]), bit-exact on both routes, each
+  route timed beside scatter_reduce;
+- generate: the port's CLI (`python -m sgam_neurips22_tpu_torch.generate`,
+  its main) on the card from a seed template and a reference-layout .ckpt
+  that the phase writes: map re-query on a 2x2 grid with --output_dir
+  (the frames, merged_pcds.ply and the map's rgbd_integrated_mesh.ply and
+  rgbd_integrated_trimesh.ply), then the spiral, cylinder and pose-file
+  trajectories; every file of the reference's layout, PLY sizes that match
+  their headers, one z-buffer and one codeword launch a frame, and the
+  unroll, export and mesh host times apart; then the exports of a
+  coherent-plane map (random-weight depth puts triangles in nearly every
+  observed voxel, which makes the map run's exports host-bound);
 - train: the conditional-generation GAN training step as `bench.py
   --config train_conditional` defines it (batch 16, n_src 2, n_embed
   16384, remat, flash attention, disc_start 0, Adam (0.5, 0.9), LPIPS with
@@ -887,7 +909,7 @@ def xrec_gate(torch, xrec, xrec_ref, idx, idx_ref) -> dict:
     return res
 
 
-def parity_step_bf16(torch, gen, cpu_model16, cpu_model, failures, seeds_batch=None) -> dict:
+def parity_step_bf16(torch, gen, cpu_model16, cpu_model, failures, seeds_batch=None, batches=None) -> dict:
     """Frame 1 of a bf16 unroll on the card against the same step on the
     CPU, for the generator's own scene or for the scenes of seeds_batch at
     once: the conditioning identical on >= 99.9% of pixels (f32 in both);
@@ -896,15 +918,22 @@ def parity_step_bf16(torch, gen, cpu_model16, cpu_model, failures, seeds_batch=N
     weights). Each bf16 forward is held to the f32 one by `xrec_gate`, the
     JAX package's bf16-vs-f32 gate; the card's against the CPU's bf16 is
     reported (two bf16 roundings of one computation, each with its own
-    near-tie flips). The f32 tolerances of parity_step do not apply."""
-    if seeds_batch is None:
-        gen.reset()
-        batch = gen.step_batch(gen.build_plan(), 0, gen.rgb_buf, gen.depth_buf)
-    else:
-        batch = gen.step_batch(gen.build_plan(), 0, *gen.batched_buffers(seeds_batch))
+    near-tie flips). The f32 tolerances of parity_step do not apply. A
+    given (card, CPU) pair of map-requery batches takes get_x's map branch,
+    as parity_step's."""
+    from sgam_neurips22_tpu_torch.models.conditioning import get_x
+
+    if batches is None:
+        if seeds_batch is None:
+            gen.reset()
+            batch = gen.step_batch(gen.build_plan(), 0, gen.rgb_buf, gen.depth_buf)
+        else:
+            batch = gen.step_batch(gen.build_plan(), 0, *gen.batched_buffers(seeds_batch))
+        batches = (batch, {k: v.cpu() for k, v in batch.items()})
+    condition = gen.condition if "src_imgs" in batches[0] else (lambda b: get_x(b, gen.cfg.dataset))
     with torch.inference_mode():
-        cond = gen.condition(batch)
-        cond_c = gen.condition({k: v.cpu() for k, v in batch.items()})
+        cond = condition(batches[0])
+        cond_c = condition(batches[1])
         x_agree = float((cond.x.cpu() == cond_c.x).all(dim=-1).float().mean())
         x, m = cond.x.cpu(), cond.extrapolation_mask.cpu()
         res, res_c, ref = gen.model(cond.x, cond.extrapolation_mask), cpu_model16(x, m), cpu_model(x, m)
@@ -1308,16 +1337,19 @@ def parity_train_bf16(torch, np, failures, bs: int = 2, seed: int = SEED, batch_
 
 
 MAP_GRID = (3, 3)  # bench.py --config integration: 8 frames on a 3x3 grid
+MAP_BATCH_GRID = (7, 7)  # bench.py batched_8_scenes_tsdf: --frames 48 on a 7x7 grid
+MAP_STRIDE2_GRID = (2, 2)  # integration_clevr_stride2, cut from 3x3 (8 frames) to 3 frames for time
 MAP_PARITY_FRAMES = 3  # generated frames that map_parity fuses after the seed
 
 
-def map_config(dataset: str, grid, coherent: bool = False):
+def map_config(dataset: str, grid, coherent: bool = False, stride: int = 1):
     """bench.py's map-requery configuration of `dataset` on `grid`: its
-    auto-sized volume and defaults (splat re-query, stride 1), 256^2, topk 1."""
+    auto-sized volume and defaults (splat re-query), 256^2, topk 1, every
+    `stride`-th ray fused (--tsdf_stride)."""
     from sgam_neurips22_tpu_torch.pipeline.scene_generation import SceneGenConfig
 
     return SceneGenConfig(dataset=dataset, output_dim=grid, topk=1, image_resolution=(H, W),
-                          use_rgbd_integration=True, coherent_plane_depth=coherent)
+                          use_rgbd_integration=True, coherent_plane_depth=coherent, tsdf_integrate_stride=stride)
 
 
 def pool_telemetry(np, gen) -> dict:
@@ -1334,9 +1366,10 @@ def pool_telemetry(np, gen) -> dict:
                                                  "cell_cap": cfg.cell_cap, "chunk": cfg.chunk}}
 
 
-def capture_pool_splat(torch, gen):
+def capture_pool_splat(torch, gen, run=None):
     """(pix, key) of the pool splat at the last frame of one more unroll
-    from the seeds: the z-buffer's input as the map built it."""
+    from the seeds (run(), default gen's own unroll): the z-buffer's input
+    as the map built it."""
     from sgam_neurips22_tpu_torch.mapping import tsdf
 
     keep, orig = {}, tsdf.pool_splat_keys
@@ -1348,8 +1381,11 @@ def capture_pool_splat(torch, gen):
 
     tsdf.pool_splat_keys = spy
     try:
-        gen.reset()
-        gen.scene_expansion()
+        if run is None:
+            gen.reset()
+            gen.scene_expansion()
+        else:
+            run()
     finally:
         tsdf.pool_splat_keys = orig
     torch.cuda.synchronize()
@@ -1584,6 +1620,247 @@ def check_zbuffer_map(torch, cases: dict, failures) -> list:
         if not row["ok"]:
             failures.append(f"zbuffer_min differs from zbuffer_min_plain at the map's shape {name}: {row}")
     return rows
+
+
+def volume_bytes(vol) -> int:
+    """Device bytes of a TSDF volume's state."""
+    import dataclasses
+
+    return sum(getattr(vol, f.name).numel() * getattr(vol, f.name).element_size() for f in dataclasses.fields(vol))
+
+
+def batched_pool_telemetry(np, gen) -> dict:
+    """The batched map's telemetry: each scene's live, lifetime and
+    recycled pool slots (recycled: the bookings past a cell's capacity,
+    each of which reused a slot), the batch's dropped and recycled slots and
+    fused share from the volume's stats (summed over scenes), and its bytes."""
+    from sgam_neurips22_tpu_torch.mapping.tsdf import fusion_fraction
+
+    cfg, vol = gen.tsdf_cfg, gen.batched_volume
+    counts = vol.cell_counts.cpu().numpy().reshape(-1, cfg.n_cells).astype(np.int64)
+    frac, n_valid, dropped, recycled = fusion_fraction(vol)
+    scenes = [{"pool_live_slots": int(np.minimum(c, cfg.cell_cap).sum()), "pool_lifetime_slots": int(c.sum()),
+               "pool_recycled": int(np.maximum(c - cfg.cell_cap, 0).sum())} for c in counts]
+    return {"scenes_pool": scenes, "pool_dropped": int(dropped), "pool_recycled": int(recycled),
+            "pool_recycled_matches_scenes": int(recycled) == sum(x["pool_recycled"] for x in scenes),
+            "fusion_fraction": frac, "valid_samples": n_valid, "volume_bytes": volume_bytes(vol),
+            "volume": {"dims": list(cfg.dims), "voxel_size": cfg.voxel_size, "band": cfg.band,
+                       "pool_cells": cfg.n_cells, "cell_cap": cfg.cell_cap, "chunk": cfg.chunk}}
+
+
+def map_parity_batched(torch, np, cpu_model, cpu_model16, seeds_batch, failures) -> dict:
+    """One batched map-requery step of 2 scenes (CLEVR, MAP_GRID), card
+    against CPU, from one seeded volume (the CPU's a copy of the card's):
+    the f32 step under parity_step's gates and the bf16 step under
+    parity_step_bf16's; then the card's f32 frames fused into the card's
+    volume and into a CPU copy of it, whose states must agree as
+    integrate_parity's (the integer state bit-exact)."""
+    from sgam_neurips22_tpu_torch.mapping.tsdf import integrate
+    from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration
+
+    seeds2, cfg = seeds_batch[:2], map_config("clevr-infinite", MAP_GRID)
+    res = {"scenes": len(seeds2)}
+    for name, model_c in (("f32", cpu_model), ("bf16", cpu_model16)):
+        gen = InfiniteSceneGeneration(copy.deepcopy(model_c), cfg, seeds2[0], device="cuda")
+        gen_c = InfiniteSceneGeneration(model_c, cfg, seeds2[0], device="cpu")
+        with torch.inference_mode():
+            rgb_flat, depth_flat = gen.batched_buffers(seeds2)
+            vol = gen.seeded_volume(seeds2, depth_flat)
+            vol_c = vol.to("cpu")
+            plan, plan_c = gen.build_plan(), gen_c.build_plan()
+            batches = (gen.requery_batch(plan, 0, rgb_flat, depth_flat, vol),
+                       gen_c.requery_batch(plan_c, 0, rgb_flat.cpu(), depth_flat.cpu(), vol_c))
+        if name == "f32":
+            res[name] = parity_step(torch, gen, cpu_model, failures, batches=batches)
+            with torch.inference_mode():
+                gen._step(plan, 0, rgb_flat, depth_flat, vol, None)
+                tgt = [s * gen.grid.size + plan["tgt"][0] for s in range(len(seeds2))]
+                integrate(vol_c, gen.tsdf_cfg, depth_flat[tgt].cpu(), None, gen.ks[0].cpu(), plan["tgt_w2c"][0].cpu())
+            st = state_equal(torch, vol, vol_c)
+            st["ok"] = (all(st[f] for f in ("pool_ids", "cell_counts", "inpool", "claim", "frame", "stats"))
+                        and st["grid_max_abs_diff"] <= GRID_MAX_ABS_DIFF
+                        and st["observedness_differing"] <= GRID_OBSERVEDNESS_SHARE * st["observed_voxels"])
+            res["state_after_step"] = st
+            if not st["ok"]:
+                failures.append(f"map_parity_batched: the volume after the step, card vs CPU: {st}")
+        else:
+            res[name] = parity_step_bf16(torch, gen, cpu_model16, cpu_model, failures, batches=batches)
+        del gen, gen_c, vol, vol_c, batches
+        torch.cuda.empty_cache()
+    res["ok"] = res["f32"]["ok"] and res["bf16"]["ok"] and res["state_after_step"]["ok"]
+    return res
+
+
+def ply_counts(path) -> dict:
+    """The element counts of a binary PLY's header and whether the file's
+    size is the header's plus the records they announce (15-byte vertices:
+    3 float + 3 uchar; 13-byte faces: a count and 3 int)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    counts = {line.split()[1]: int(line.split()[2]) for line in data[:end].decode().splitlines()
+              if line.startswith("element")}
+    size = end + 15 * counts.get("vertex", 0) + 13 * counts.get("face", 0)
+    return {**counts, "bytes": len(data), "size_matches_header": size == len(data)}
+
+
+def write_template(np, rng, root: Path) -> None:
+    """A clevr-infinite seed template in the reference layout at H x W: an
+    8-bit RGB PNG and its ray depth, U(8, 14), at grid (0, 0)."""
+    from sgam_neurips22_tpu_torch.pipeline.png import write_png
+
+    root.mkdir(parents=True)
+    write_png(str(root / "im_00000_00_00.png"), rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    np.save(root / "dm_00000_00_00.npy", rng.uniform(8, 14, (H, W)).astype(np.float32))
+
+
+def write_pose_file(np, path: Path, n: int) -> None:
+    """A KITTI-360-style cam0_to_world.txt: n camera -> world poses along the
+    clevr-infinite grid's first row, frame indices 10, 12, 14, ..."""
+    from sgam_neurips22_tpu_torch.pipeline.trajectory import prepare_grid
+
+    grid = prepare_grid("clevr-infinite", (1, n))
+    np.savetxt(path, np.stack([np.concatenate([[10 + 2 * k], grid.c2w(k).reshape(-1)]) for k in range(n)]))
+
+
+GENERATE_RUNS = (  # (name, generate.py flags, frames generated): the map run writes the mesh
+    ("map_requery_2x2", ["--rows", "2", "--cols", "2", "--use_rgbd_integration"], 3),
+    ("spiral", ["--rows", "4", "--trajectory", "spiral"], 3),
+    ("cylinder", ["--rows", "4", "--trajectory", "cylinder"], 3),
+    ("pose_file", ["--rows", "4", "--trajectory", "trajectory"], 3),
+)
+
+
+def coherent_export(torch, np, model, seeds, out_dir: Path) -> dict:
+    """The exports of a coherent-plane map (CLEVR, MAP_GRID, every depth one
+    world plane's, so the surface converges as with trained weights): the
+    host seconds of export_frames, of export_point_clouds and of the mesh
+    in it, and the PLY element counts. Random-weight depth turns nearly
+    every observed voxel into triangles, which makes those exports
+    host-bound (generate's map run)."""
+    from sgam_neurips22_tpu_torch.mapping import mesh
+    from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration
+
+    gen = InfiniteSceneGeneration(model, map_config("clevr-infinite", MAP_GRID, coherent=True), seeds, device="cuda")
+    gen.reset([((0, 0), seeds[0][1], gen.plane_depth_at(0))])
+    gen.scene_expansion()
+    torch.cuda.synchronize()
+    out, extract = {}, mesh.extract_mesh
+    t0 = time.perf_counter()
+    gen.export_frames(str(out_dir))
+    out["export_frames_seconds"] = time.perf_counter() - t0
+
+    def timed_extract(*a, **kw):
+        t1 = time.perf_counter()
+        try:
+            return extract(*a, **kw)
+        finally:
+            out["mesh_seconds"] = time.perf_counter() - t1
+
+    mesh.extract_mesh = timed_extract
+    try:
+        t0 = time.perf_counter()
+        gen.export_point_clouds(str(out_dir))
+        out["export_point_clouds_seconds"] = time.perf_counter() - t0
+    finally:
+        mesh.extract_mesh = extract
+    out["ply"] = {p.name: ply_counts(p) for p in sorted(out_dir.iterdir()) if p.suffix == ".ply"}
+    out["ok"] = ("rgbd_integrated_trimesh.ply" in out["ply"]
+                 and all(x["size_matches_header"] for x in out["ply"].values()))
+    return out
+
+
+def generate_phase(torch, np, cpu_model, counters, failures, model16=None, seeds=None) -> dict:
+    """The port's generate CLI (`sgam_neurips22_tpu_torch.generate.main`) on
+    the card, its default device, from a seed template and a reference-
+    layout .ckpt of the seeded random f32 weights that the phase writes,
+    once per GENERATE_RUNS entry with --output_dir: the file names of the
+    reference's layout (im_/dm_/R_/t_ a frame, merged_pcds.ply, and under
+    map re-query rgbd_integrated_mesh.ply and rgbd_integrated_trimesh.ply),
+    PLY sizes that match their headers, one z-buffer and one codeword launch
+    a generated frame, and the host seconds of the unroll, the frame and
+    point-cloud exports and the mesh apart. With model16 and seeds it
+    also times the exports of a coherent-plane map (coherent_export)."""
+    import tempfile
+
+    from sgam_neurips22_tpu_torch import generate
+    from sgam_neurips22_tpu_torch.mapping import mesh
+    from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
+    from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration as Gen
+
+    timers: dict[str, float] = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                timers[name] = timers.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    patched = {(Gen, n): getattr(Gen, n) for n in ("scene_expansion", "export_frame", "export_frames",
+                                                   "export_point_clouds")}
+    patched[(mesh, "extract_mesh")] = mesh.extract_mesh
+    out: dict = {"runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_template(np, np.random.default_rng(SEED + 5), root / "templates")
+        t0 = time.perf_counter()
+        torch.save({"state_dict": cpu_model.state_dict()}, root / "last.ckpt")
+        out["ckpt_write_seconds"] = time.perf_counter() - t0
+        write_pose_file(np, root / "cam0_to_world.txt", 6)
+        for (obj, name), fn in patched.items():
+            setattr(obj, name, timed(name, fn))
+        try:
+            for name, flags, frames in GENERATE_RUNS:
+                timers.clear()
+                out_dir = root / name
+                argv = ["--dataset", "clevr-infinite", "--ckpt", str(root / "last.ckpt"), "--template_dir",
+                        str(root / "templates"), "--output_dir", str(out_dir), "--resolution", str(H), *flags]
+                if name == "pose_file":
+                    argv += ["--pose_file", str(root / "cam0_to_world.txt")]
+                for fn in counters:
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                generate.main(argv)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                launches = {fn.__name__: fn.launches for fn in counters}
+                rows, cols = int(flags[1]), int(flags[3]) if flags[2] == "--cols" else 1
+                want = {f"{p}_{step:05d}_{i:02d}_{j:02d}.{e}"
+                        for step, (i, j) in enumerate(ORDERS["zigzag"](rows, cols))
+                        for p, e in (("im", "png"), ("dm", "npy"), ("R", "npy"), ("t", "npy"))}
+                want.add("merged_pcds.ply")
+                if "--use_rgbd_integration" in flags:
+                    want |= {"rgbd_integrated_mesh.ply", "rgbd_integrated_trimesh.ply"}
+                got = set(p.name for p in out_dir.iterdir())
+                plys = {n: ply_counts(out_dir / n) for n in sorted(got) if n.endswith(".ply")}
+                exports = sum(timers.get(n, 0.0) for n in ("export_frame", "export_frames", "export_point_clouds"))
+                run = {
+                    "frames": frames, "files_as_reference": got == want, "missing": sorted(want - got),
+                    "unexpected": sorted(got - want), "ply": plys, "launches": launches,
+                    "seconds": total, "setup_seconds": total - timers.get("scene_expansion", 0.0),
+                    "unroll_seconds": timers.get("scene_expansion", 0.0) - exports,
+                    "export_seconds": exports - timers.get("extract_mesh", 0.0),
+                    "mesh_seconds": timers.get("extract_mesh", 0.0),
+                }
+                run["ok"] = (run["files_as_reference"] and all(x["size_matches_header"] for x in plys.values())
+                             and launches["zbuffer_min"] == frames and launches["nearest_codeword"] == frames
+                             and launches["flash_attention_fwd"] == 0)
+                if not run["ok"]:
+                    failures.append(f"generate {name}: {run}")
+                out["runs"][name] = run
+        finally:
+            for (obj, name), fn in patched.items():
+                setattr(obj, name, fn)
+        if model16 is not None:
+            out["coherent_export"] = coherent_export(torch, np, model16, seeds, root / "coherent")
+            if not out["coherent_export"]["ok"]:
+                failures.append(f"generate coherent_export: {out['coherent_export']}")
+    out["ok"] = all(r["ok"] for r in out["runs"].values()) and out.get("coherent_export", {}).get("ok", True)
+    return out
 
 
 def seed_frames(np, rng, depth_range=(8, 14)) -> list:
@@ -1889,17 +2166,74 @@ def main(argv=None) -> int:
     del gen_coh
     torch.cuda.empty_cache()
 
+    # 14b. CLEVR's map re-query fusing every second ray (bench.py's
+    #      integration_clevr_stride2: --config integration --tsdf_stride 2)
+    gen_s2 = InfiniteSceneGeneration(gen_map.model, map_config("clevr-infinite", MAP_STRIDE2_GRID, stride=2),
+                                     seeds, device="cuda")
+    s2_rep, report["profile_integration_clevr_stride2"], _ = map_phase(
+        torch, np, gen_s2, gen_s2.grid.size - 1, counters, failures, "integration_clevr_stride2", card)
+    s2_rep["integrate_stride"] = 2
+    paths["integration_clevr_stride2"] = s2_rep["launches"]
+    emit({"phase": "integration_clevr_stride2", **s2_rep})
+    del gen_s2
+
+    # 14c. map re-query for SCENES scenes at once at bf16 (bench.py's
+    #      batched_8_scenes_tsdf: --batch_scenes 8 --frames 48
+    #      --rgbd_integration): CLEVR 7x7, 5 sources, each scene its own
+    #      seed frame (depth U(8, 14)), their maps in one batched volume
+    t0 = time.perf_counter()
+    gen_mb = InfiniteSceneGeneration(gen_map.model, map_config("clevr-infinite", MAP_BATCH_GRID), seeds,
+                                     device="cuda")
+    mb_frames = gen_mb.grid.size - 1
+    want_mb = {"zbuffer_min": mb_frames, "nearest_codeword": mb_frames, "flash_attention_fwd": 7 * mb_frames,
+               "flash_attention_dq": 0, "flash_attention_dkv": 0}
+    (rgb_mb, _), mb_rep, report["profile_unroll_tsdf_batched"] = unroll_phase(
+        torch, lambda: gen_mb.scene_expansion_batched(seeds_batch), SCENES * mb_frames, counters, want_mb, failures,
+        "unroll_tsdf_batched", per_step=SCENES)
+    scenes_differ = not torch.equal(rgb_mb[0, 1], rgb_mb[1, 1])
+    mb_rep.update(card=card, scenes=SCENES, frames_per_scene=mb_frames, grid=list(MAP_BATCH_GRID),
+                  sources=gen_mb.cfg.effective_num_src, scenes_0_1_differ_at_frame_1=scenes_differ,
+                  **batched_pool_telemetry(np, gen_mb))
+    del rgb_mb
+    if not scenes_differ:
+        failures.append("unroll_tsdf_batched: scenes 0 and 1 equal at frame 1")
+    if not mb_rep["pool_recycled_matches_scenes"]:
+        failures.append(f"unroll_tsdf_batched: pool telemetry disagrees: {mb_rep}")
+    pix, key = capture_pool_splat(torch, gen_mb, lambda: gen_mb.scene_expansion_batched(seeds_batch))
+    map_keys["map_clevr_8_scenes_last_frame"] = (pix, key)
+    mb_rep["pool_splat_shape"] = list(pix.shape)
+    mb_rep["phase_seconds"] = time.perf_counter() - t0
+    paths["unroll_tsdf_batched"] = mb_rep["launches"]
+    emit({"phase": "unroll_tsdf_batched", **mb_rep})
+    del gen_mb, pix, key
+    torch.cuda.empty_cache()
+
     # 15. the map on the card against the CPU, f32, and the z-buffer at the
     #     map's own shapes
     t0 = time.perf_counter()
     parity_map = map_parity(torch, np, gen_map, gen_ge_map, cpu_model, seeds, failures)
     emit({"phase": "map_parity", "seconds": time.perf_counter() - t0, **parity_map})
     t0 = time.perf_counter()
+    parity_map_b = map_parity_batched(torch, np, cpu_model, cpu_model16, seeds_batch, failures)
+    parity_map_b["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parity_map_batched", **parity_map_b})
+    t0 = time.perf_counter()
     zb_map = check_zbuffer_map(torch, map_keys, failures)
     kernels[0]["shapes"].extend(zb_map)
     emit({"phase": "zbuffer_map_shapes", "seconds": time.perf_counter() - t0, "shapes": zb_map})
+    gen_map_model = gen_map.model
     del gen_map, gen_ge_map, ge_model, map_keys
     torch.cuda.empty_cache()
+
+    # 15b. the port's generate CLI on the card: map re-query with the
+    #      exports and the mesh, then the spiral, cylinder and pose-file
+    #      trajectories; and the exports of a coherent-plane map
+    t0 = time.perf_counter()
+    gen_rep = generate_phase(torch, np, cpu_model, counters, failures, gen_map_model, seeds)
+    gen_rep["seconds"] = time.perf_counter() - t0
+    paths.update({f"generate_{name}": r["launches"] for name, r in gen_rep["runs"].items()})
+    emit({"phase": "generate", **gen_rep, "card": card})
+    del gen_map_model
 
     # 16. the conditional-generation training step, batch 16
     t0 = time.perf_counter()
@@ -1938,7 +2272,9 @@ def main(argv=None) -> int:
                   parity_batched=parity_b, unroll_bf16=bf16_rep, parity_bf16=parity16,
                   unroll_batched_bf16=batched16, parity_batched_bf16=parity16_b, stride2=stride2, topk=topk,
                   google_earth=ge_rep, unroll_tsdf=tsdf_rep, unroll_tsdf_ge=ge_tsdf_rep,
-                  unroll_tsdf_ge_coherent=coh_rep, map_parity=parity_map, train=train, parity_train=parity_t,
+                  unroll_tsdf_ge_coherent=coh_rep, integration_clevr_stride2=s2_rep, unroll_tsdf_batched=mb_rep,
+                  map_parity=parity_map, parity_map_batched=parity_map_b, generate=gen_rep, train=train,
+                  parity_train=parity_t,
                   train_bf16=train16, parity_train_bf16=parity_t16, profiler_misses=PROFILER_MISSES, failures=failures,
                   seconds=time.perf_counter() - t_start)
     emit({"phase": "profiler", "misses": len(PROFILER_MISSES), "calls": sorted(set(PROFILER_MISSES))})

@@ -215,6 +215,17 @@ class TSDFVolume:
         """[S*capacity] the pool's slots (JAX's pool_ids)."""
         return self.pool_slots[:-1]
 
+    @property
+    def tsdf(self) -> torch.Tensor:
+        """The TSDF in [-1, 1], flat [S*V] (sums clipped: the sign is the
+        mean's; an unobserved voxel reads 0, so gate on `weight`)."""
+        return torch.clamp(self.grid, -1.0, 1.0)
+
+    @property
+    def weight(self) -> torch.Tensor:
+        """1 where a voxel was observed (any band sample touched it), flat [S*V]."""
+        return (self.grid != 0.0).float()
+
     def to(self, device) -> "TSDFVolume":
         """A copy of the volume on `device`."""
         return TSDFVolume(**{f.name: getattr(self, f.name).to(device, copy=True) for f in dataclasses.fields(self)})
@@ -711,3 +722,54 @@ def render_depth(vol, cfg, intrinsics, extrinsic, image_size, near: float, far: 
     if method == "splat":
         return _render_depth_splat(vol, cfg, intrinsics, extrinsic, image_size, near, far, refine=refine)
     return _render_depth_raycast(vol, cfg, intrinsics, extrinsic, image_size, near, far, n_samples, interp)
+
+
+# --------------------------------------------------------------------------
+# export (host-side numpy)
+# --------------------------------------------------------------------------
+def extract_points(vol: TSDFVolume, cfg: TSDFConfig, max_abs_tsdf: float = 1.0, scene: int = 0):
+    """The surface point cloud of scene `scene`: the voxel centres of its
+    live pool slots (the set the splat renders from), deduplicated, where
+    |clipped sum| < max_abs_tsdf; gray colours (`colorize_points` gives
+    real ones). Returns (points [P, 3] f32, colours [P, 3] f32)."""
+    n_vox = cfg.n_voxels
+    ids = vol.pool_ids.cpu().numpy().reshape(-1, cfg.n_cells, cfg.cell_cap)[scene]
+    counts = vol.cell_counts.cpu().numpy().reshape(-1, cfg.n_cells)[scene]
+    live = np.minimum(counts, cfg.cell_cap)
+    sel = [ids[c, : live[c]] for c in range(cfg.n_cells) if live[c] > 0]
+    if not sel:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32)
+    # pool ids are scene-offset; a hashed volume may book one voxel twice
+    lin = np.unique(np.concatenate(sel)) - scene * n_vox
+    g = vol.grid[scene * n_vox: (scene + 1) * n_vox].cpu().numpy()
+    lin = lin[np.abs(np.clip(g[lin], -1.0, 1.0)) < max_abs_tsdf + 1e-9]
+    x, y, z = (c.numpy() for c in cfg.unlin_index(torch.from_numpy(lin)))
+    pts = (np.stack([x, y, z], axis=-1) + 0.5) * cfg.voxel_size + np.asarray(cfg.origin)
+    return pts.astype(np.float32), np.full((len(pts), 3), 0.5, np.float32)
+
+
+def colorize_points(pts: np.ndarray, rgbs: np.ndarray, depths: np.ndarray, intrinsics: np.ndarray,
+                    w2cs: np.ndarray, tol: float) -> np.ndarray:
+    """Colours [P, 3] in [0, 1] of world points [P, 3] by reprojection into
+    frames rgbs [N, H, W, 3] in [-1, 1], depths [N, H, W] at poses w2cs
+    [N, 4, 4]: the first frame whose depth agrees within `tol` wins; gray
+    where none does (the map itself holds no colour)."""
+    n, h, w = depths.shape[:3]
+    cols = np.full((len(pts), 3), 0.5, np.float32)
+    done = np.zeros(len(pts), bool)
+    k = np.asarray(intrinsics, np.float64)
+    for i in range(n):
+        if done.all():
+            break
+        t = np.asarray(w2cs[i], np.float64)
+        cam = pts @ t[:3, :3].T + t[:3, 3]
+        z = cam[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = np.floor(k[0, 0] * cam[:, 0] / z + k[0, 2] + 0.5).astype(np.int64)
+            v = np.floor(k[1, 1] * cam[:, 1] / z + k[1, 2] + 0.5).astype(np.int64)
+        ok = (z > 1e-3) & (u >= 0) & (u < w) & (v >= 0) & (v < h) & ~done
+        uu, vv = np.clip(u, 0, w - 1), np.clip(v, 0, h - 1)
+        ok &= np.abs(depths[i][vv, uu] - z) < tol
+        cols[ok] = (rgbs[i][vv[ok], uu[ok]] + 1.0) / 2.0
+        done |= ok
+    return cols

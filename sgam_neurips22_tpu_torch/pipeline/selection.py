@@ -1,7 +1,8 @@
 """Source-view selection for each generation step — numpy copy of
 `sgam_neurips22_tpu/pipeline/selection.py`: every visited pose within a
 per-dataset radius of the target (1.0 CLEVR, 0.3 otherwise), nearest first,
-at most num_src."""
+at most num_src; a pose-file trajectory takes the num_src frames before the
+target instead."""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
@@ -26,8 +27,12 @@ def select_sources(
     num_src: int,
     dataset: str,
 ) -> List[Tuple[int, int]]:
-    """Coordinates of the source views for the `curr`-th generation step
-    (the grid rule; pose-file trajectories are not ported yet)."""
+    """Coordinates of the source views for the `curr`-th generation step.
+    On a pose-file trajectory these are the num_src previous rows, as the
+    reference takes them: near the start some rows are negative, and
+    index the trajectory from its end, as numpy and torch indexing do."""
+    if grid.trajectory_shape == "trajectory":
+        return [(tgt_coord[0] - i - 1, 0) for i in range(num_src)]
     tgt_pos = grid.position[grid.index(*tgt_coord)]
     radius = source_radius(dataset)
     cands = []

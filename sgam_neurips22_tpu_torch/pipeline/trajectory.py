@@ -1,11 +1,13 @@
-"""Camera pose grids — numpy copy of the grid part of
-`sgam_neurips22_tpu/pipeline/trajectory.py` (`default_intrinsics`,
-`PoseGrid`, `prepare_grid`). Poses are built as OpenGL c2w, flipped to
-OpenCV with diag(1,-1,-1,1), and stored as world->cam (R, t)."""
+"""Camera trajectories — numpy copy of
+`sgam_neurips22_tpu/pipeline/trajectory.py`: the per-dataset intrinsics,
+the pose table `PoseGrid`, and its four builders: the grid, the spiral,
+the ring ("cylinder") and a KITTI-360-style pose file. Poses are built as
+OpenGL c2w, flipped to OpenCV with diag(1,-1,-1,1), and stored as
+world->cam (R, t)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -112,3 +114,95 @@ def prepare_grid(
             c2w[:3, 3] = start[:3, 3] + step_j * j + step_i * i
             w2cs.append(np.linalg.inv(c2w @ GL2CV))
     return _finalize(rows, cols, w2cs, k, "grid")
+
+
+def prepare_spiral(
+    dataset: str,
+    n_frames: int,
+    step_size_denom: float = 2.0,
+    intrinsics: Optional[np.ndarray] = None,
+) -> PoseGrid:
+    """Archimedean spiral about the start pose, n_frames x 1 (reference
+    inference_pipeline.py:206-287, without its viewer call)."""
+    start = START_TRANSFORMS[dataset]
+    k = default_intrinsics(dataset) if intrinsics is None else intrinsics
+    w2c0 = np.linalg.inv(start @ GL2CV)
+    origin = -w2c0[:3, :3].T @ w2c0[:3, 3]
+    arc, separation = 1.0, 1.0
+    r = arc
+    b = separation / (2 * np.pi)
+    theta = float(r) / b
+    w2cs = []
+    for _ in range(n_frames):
+        rot = np.array(
+            [
+                [np.cos(90 - theta), np.sin(90 - theta), 0],
+                [-np.sin(90 - theta), np.cos(90 - theta), 0],
+                [0, 0, 1],
+            ]
+        )
+        c2w = np.eye(4)
+        c2w[:3, 3] = origin
+        c2w[0, 3] += theta * np.cos(theta) / 10
+        c2w[1, 3] += theta * np.sin(theta) / 10
+        c2w[:3, :3] = rot
+        w2cs.append(np.linalg.inv(c2w))
+        theta += float(arc) / r
+        r = b * theta
+    return _finalize(n_frames, 1, w2cs, k, "spiral")
+
+
+def prepare_ring(
+    dataset: str,
+    n_frames: int,
+    step_size_denom: float = 2.0,
+    horizontal_offset: float = 0.002,
+    intrinsics: Optional[np.ndarray] = None,
+) -> PoseGrid:
+    """Orbit on a cylinder ("cylinder"), n_frames x 1 (reference
+    inference_pipeline.py:289-359)."""
+    start = START_TRANSFORMS[dataset]
+    step_i, _ = STEP_UNITS[dataset]
+    if dataset != "google_earth":
+        step_i = -step_i
+    step_i = step_i / step_size_denom
+    k = default_intrinsics(dataset) if intrinsics is None else intrinsics
+    curr = start @ GL2CV
+    theta = np.pi / 80
+    rot = np.eye(4)
+    rot[:3, :3] = np.array([[1, 0, 0], [0, np.cos(theta), np.sin(theta)], [0, -np.sin(theta), np.cos(theta)]])
+    w2cs = []
+    for _ in range(n_frames):
+        trans = np.eye(4)
+        trans[:3, 3] = -step_i
+        trans[0, 3] = horizontal_offset
+        w2c = trans @ rot @ np.linalg.inv(curr)
+        w2cs.append(w2c)
+        curr = np.linalg.inv(w2c)
+    return _finalize(n_frames, 1, w2cs, k, "cylinder")
+
+
+def load_poses(pose_file: str) -> Dict[int, np.ndarray]:
+    """frame index -> 4x4 c2w from a KITTI-360-style cam0_to_world.txt
+    (each line: the index, then the 16 entries of the matrix)."""
+    poses = np.loadtxt(pose_file)
+    return dict(zip(poses[:, 0].astype(int), poses[:, 1:].reshape(-1, 4, 4)))
+
+
+def prepare_trajectory(
+    dataset: str,
+    pose_file: str,
+    n_frames: int,
+    start_frame: Optional[int] = None,
+    intrinsics: Optional[np.ndarray] = None,
+) -> PoseGrid:
+    """n_frames x 1 poses of a pose file, from `start_frame` (the first
+    index by default) in index order (reference inference_pipeline.py:369-421)."""
+    poses = load_poses(pose_file)
+    keys = sorted(poses)
+    start = keys.index(start_frame) if start_frame is not None else 0
+    if start + n_frames > len(keys):
+        raise ValueError("trajectory shorter than requested length")
+    k = default_intrinsics(dataset) if intrinsics is None else intrinsics
+    w2cs = [np.linalg.inv(poses[keys[start + i]]) for i in range(n_frames)]
+    return _finalize(n_frames, 1, w2cs, k, "trajectory")

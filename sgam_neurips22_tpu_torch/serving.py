@@ -1,8 +1,12 @@
-"""The flagship model configurations — port of `flagship_config` in
-`sgam_neurips22_tpu/serving.py`."""
+"""The flagship model configurations and inference weights — port of
+`flagship_config` and the reference-checkpoint branch of
+`load_inference_params` in `sgam_neurips22_tpu/serving.py`."""
 from __future__ import annotations
 
+import os
 from dataclasses import replace
+
+import torch
 
 from sgam_neurips22_tpu_torch.models.vqgan.autoencoder import DDConfig
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModelConfig
@@ -29,3 +33,36 @@ def flagship_config(dataset: str = "clevr-infinite", compute_dtype: str = "float
     if dataset != "clevr-infinite":
         raise ValueError(f"unknown dataset {dataset!r}")
     return cfg
+
+
+def load_inference_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a reference torch checkpoint (a Lightning `.ckpt`, or a bare
+    state_dict) into `model`, as the JAX package merges one: the
+    `state_dict` entry if there is one, without the loss's `loss.*` and
+    `perceptual_loss.*` tensors; every other tensor whose name and shape
+    the model has replaces the model's, and the rest of the model keeps
+    its weights (a non-strict load). The checkpoint is unpickled whole, as
+    the reference's loader does: load only files you trust.
+
+    The JAX package's other forms, a `.pkl` of its parameter tree and an
+    orbax checkpoint directory of its trainer, hold JAX pytrees and raise
+    here (ROADMAP.md, queue item 1.4 / 1.5)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if os.path.isdir(path) or path.endswith(".pkl"):
+        raise NotImplementedError(
+            f"{path}: the JAX package's .pkl and orbax checkpoints hold JAX parameter trees, which the port does "
+            "not read (ROADMAP.md, queue items 1.4-1.5); pass a reference torch .ckpt"
+        )
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+    own = model.state_dict()
+    merged = dict(own)
+    for name, tensor in sd.items():
+        if name.split(".")[0] in ("loss", "perceptual_loss") or name not in own:
+            continue
+        tensor = torch.as_tensor(tensor)
+        if tuple(tensor.shape) == tuple(own[name].shape):
+            merged[name] = tensor.to(own[name].dtype)
+    model.load_state_dict(merged)
+    return model

@@ -202,8 +202,9 @@ def test_requery_conditioning_matches_jax(params):
 
 def test_map_requery_config(params):
     """Map re-query skips the splat's packed-key point budget (it never
-    splats), the batched unroll raises for it until it is ported, and the
-    entry point's default device is the card."""
+    splats), the batched unroll runs it (tests/test_torch_port_map_batched.py
+    holds it against JAX) with the splat renderer only, and the entry
+    point's default device is the card."""
     SceneGenConfig(use_rgbd_integration=True, image_resolution=(512, 512))
     with pytest.raises(ValueError, match="2\\^19 point capacity"):
         SceneGenConfig(image_resolution=(512, 512))
@@ -216,8 +217,13 @@ def test_map_requery_config(params):
         warnings.simplefilter("ignore")
         gen = InfiniteSceneGeneration(port_model(params[kw["dataset"]], TINY), SceneGenConfig(**kw), seeds,
                                       intrinsics=k, device="cpu")
-    with pytest.raises(NotImplementedError, match="batched map re-query"):
-        gen.scene_expansion_batched([seeds, seeds])
+    rgb, depth = gen.scene_expansion_batched([seeds, seeds])
+    assert tuple(rgb.shape) == (2, 9, H, W, 3) and tuple(depth.shape) == (2, 9, H, W)
+    assert int(gen.batched_volume.frame) == 9 and torch.isfinite(rgb).all()
+    raycast = InfiniteSceneGeneration(gen.model, SceneGenConfig(**kw, requery_method="raycast"), seeds,
+                                      intrinsics=k, device="cpu")
+    with pytest.raises(NotImplementedError, match="method='splat' only"):
+        raycast.scene_expansion_batched([seeds, seeds])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             InfiniteSceneGeneration(gen.model, SceneGenConfig(**kw), seeds, intrinsics=k)
