@@ -10,7 +10,8 @@ one-call library equivalent; the z-buffer merge bit-exact at the shape and
 point order of each of its callers, the JAX package's map-requery pool
 splat, google_earth and the strided splat among them, on both of its
 routes, see check_zbuffer; the codeword search at P = 256, 2048 and 4096,
-the codebook phase's P = K = 2048 and google_earth's K = 4096, and also on
+the codebook phase's K = 2048 at P = 2048 and 768 and google_earth's K =
+4096, and also on
 a clustered codebook against float64 and on exact ties, see
 check_nearest_codeword), holds the splat's two scatter modes
 (nearest_exact, last) on the card bit-exact to the CPU at the flythrough's
@@ -98,7 +99,24 @@ the device's idle share):
 - train_bf16: the same step with a bf16 model (train_conditional_bf16),
   the same launches; then parity_train_bf16, its batch-2 step on the card
   and on the CPU, each held to the CPU's f32 step at a codebook where no
-  latent changes codeword, and a planted fault (dV zeroed) that must fail.
+  latent changes codeword, and a planted fault (dV zeroed) that must fail;
+- the trainer (trainer_phases), on a CLEVR-style dataset written from a
+  seed into a temporary directory (256^2 PNGs, half of them Paeth-filtered,
+  ray depths, pose graphs, file lists and the codebook phase's packed
+  shards): loader, the Loader's host examples/s (unfiltered and Paeth PNGs,
+  the packed shard, pair examples);
+  train_codebook_cli, the train CLI on configs/codebooks/clevr-infinite.yaml
+  at full width from the packed shard, 9 steps with a k-means refresh at
+  step 8 (CODEBOOK_OVERRIDES), then ms/step through Trainer.fit against
+  train_step alone, the checkpoint's bytes and seconds, and the refresh at
+  the YAML's own buffer; train_conditional_cli, the train CLI on
+  configs/conditional_generation/clevr-infinite.yaml at full width, warm-
+  started from the codebook run, 3 steps, validation and test, SIGUSR1
+  mid-run (an emergency checkpoint, training goes on), -r for one more
+  step, and the same timings; generate_config,
+  the generate CLI with --config and --ckpt on the conditional run, 3
+  frames; parity_trainer, two Trainer steps (accumulation 2, the
+  scheduler on) on the card against the CPU under parity_train's gates.
 
 Each phase prints one JSON line with its seconds; --out DIR also writes the
 details to DIR/chip_smoke.json and nvcc's register report to
@@ -111,6 +129,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -138,7 +157,8 @@ FLASH_TILES = {(c, bq) for c in (64, 128, 256, 512) for bq in (16, 32 if c == 51
 # and the training step (K=16384); the codebook phase's (P, K); the
 # clustered case's P; identical codeword pairs of the exact-tie case
 VQ_P = (256, SCENES * 256, 4096)
-VQ_CODEBOOK_PHASE_P, VQ_CODEBOOK_PHASE_K = 2048, 2048
+# the codebook phase's K = 2048 at P = 2048 and at its YAML's batch 3 (768 latents)
+VQ_CODEBOOK_PHASE_P, VQ_CODEBOOK_PHASE_K = (2048, 768), 2048
 VQ_CLUSTERED_P = 2048
 VQ_TIES = ((100, 9000), (130, 250), (16, 19))
 # google_earth's codebook of 4096 at the batch-1 and the 8-scene unroll's P,
@@ -504,8 +524,8 @@ def check_nearest_codeword(torch, codebook, failures):
     """The codeword search against its plain version, on the flagship's
     seeded init codebook (uniform(-1/K, 1/K), K=16384) at the batch-1
     unroll's P=256, the 8-scene unroll's P=2048 and the training step's
-    P=4096, and on the codebook phase's (P=2048, a seeded K=2048 init
-    codebook): distances at rtol 1e-5, indices equal but at f32 near-ties.
+    P=4096, and on the codebook phase's (P=2048 and its YAML's batch-3
+    P=768, a seeded K=2048 init codebook): distances at rtol 1e-5, indices equal but at f32 near-ties.
     Then two cases a trained codebook poses. Clustered: e ~ N(0, 1)
     [16384, 256], z = e_j + 0.05 N(0, 1), P=2048, where the distance is a
     small difference of large terms, so rtol 1e-5 fails f32 itself; each
@@ -535,8 +555,8 @@ def check_nearest_codeword(torch, codebook, failures):
         return (cb[rows] + 0.05 * torch.randn((len(rows), d), generator=g, device=dev)).contiguous()
 
     cases = [(f"init P={p}", torch.randn((p, d), generator=g, device=dev), cb_init) for p in VQ_P]
-    cases.append((f"codebook phase P={VQ_CODEBOOK_PHASE_P}",
-                  torch.randn((VQ_CODEBOOK_PHASE_P, d), generator=g, device=dev), cb_small))
+    cases += [(f"codebook phase P={p}", torch.randn((p, d), generator=g, device=dev), cb_small)
+              for p in VQ_CODEBOOK_PHASE_P]
     rows = torch.randint(0, cb_init.shape[0], (VQ_CLUSTERED_P,), generator=g, device=dev)
     cases.append((f"clustered P={VQ_CLUSTERED_P}", near(cb_clustered, rows), cb_clustered))
     cb_ties = cb_clustered.clone()
@@ -1913,6 +1933,456 @@ def unroll_phase(torch, unroll, frames: int, counters, want: dict, failures, nam
     return (rgb, depth), rep, prof
 
 
+# ---------------------------------------------------------------- the trainer
+# (the repository's configs at full width, on datasets written below from a seed)
+CODEBOOK_YAML = "configs/codebooks/clevr-infinite.yaml"
+CONDITIONAL_YAML = "configs/conditional_generation/clevr-infinite.yaml"
+DATA_SCENES, DATA_FRAMES = 8, 18  # train split: 8 scenes x 18 frames (9 batches of 16); val: 1 scene
+PAETH_EVERY = 2  # every second PNG of the dataset is hand-encoded with the Paeth filter
+# the codebook run's overrides besides dataset_dir: a buffer of 8 steps, full
+# after step 8, and a timeout of one step, so that the refresh fires at step 8
+# with every codeword batch element 0 did not use at step 7 inactive
+CODEBOOK_MAX_STEPS = 8
+CODEBOOK_OVERRIDES = ("model.params.online_kmeans_config.train_feature_buffer_size=8",
+                      "model.params.online_kmeans_config.frequency=8",
+                      "model.params.online_kmeans_config.online_kmeans_word_timeout=1",
+                      "model.params.online_kmeans_config.inactive_threshold=0.1")
+CONDITIONAL_MAX_STEPS = 2  # fit stops after the step numbered max_steps: 3 steps
+FIT_TIMED_STEPS = 5  # steps timed through Trainer.fit, after one untimed step, images off
+LOADER_BATCH, LOADER_BATCHES = 16, 4  # batches per loader-rate measurement
+
+
+def loader_rates(np, root: Path, by_filter: dict) -> dict:
+    """Host examples/s of the Loader (batch 16, 8 decode threads, no device
+    copy) after its first batch, over LOADER_BATCHES batches: one-PNG
+    codebook examples, unfiltered and Paeth-filtered; the packed shard; and
+    the conditional phase's pair examples (a target and 2 sources: 3 PNGs,
+    half of them Paeth, and 3 depth files)."""
+    from sgam_neurips22_tpu_torch.training.data.codebook_dataset import CodebookDataset
+    from sgam_neurips22_tpu_torch.training.data.datamodule import Loader
+    from sgam_neurips22_tpu_torch.training.data.packed import PackedCodebookDataset, shard_path
+    from sgam_neurips22_tpu_torch.training.data.pair_dataset import ClevrInfinitePairs
+
+    bs, out, lists = LOADER_BATCH, {}, {}
+    for name, paths in by_filter.items():
+        lists[name] = root / f"list_{name}.txt"
+        lists[name].write_text("\n".join(paths[: bs * LOADER_BATCHES]))
+
+    def rate(ds):
+        """(seconds to the first batch, examples/s over the batches after it)"""
+        loader = Loader(ds, bs, shuffle=True, seed=SEED)
+        t0 = time.perf_counter()
+        marks = []
+        for i, _ in enumerate(loader):
+            marks.append(time.perf_counter())
+            if i + 1 == LOADER_BATCHES:
+                break
+        return {"first_batch_s": marks[0] - t0, "examples_per_s": bs * (len(marks) - 1) / (marks[-1] - marks[0])}
+
+    for name in ("none", "paeth"):
+        ds = CodebookDataset("train", str(root), "clevr-infinite", (H, W), training_images_list_file=str(lists[name]))
+        out[f"png_{name}"] = rate(ds)
+    out["packed"] = rate(PackedCodebookDataset(shard_path(str(root), "train", (H, W))))
+    out["pairs"] = rate(ClevrInfinitePairs("train", str(root), 2, (H, W)))
+    out["batch"] = bs
+    return out
+
+
+def run_train_cli(argv: list, observe=None):
+    """The port's train CLI (`sgam_neurips22_tpu_torch.train.main`) in this
+    process; the signal handlers it installs are put back afterwards.
+    `observe(trainer_class)` may wrap methods for the run."""
+    import signal
+
+    from sgam_neurips22_tpu_torch import train as train_cli
+
+    saved = {s: signal.getsignal(s) for s in (signal.SIGUSR1, signal.SIGUSR2, signal.SIGTERM)}
+    try:
+        return train_cli.main([*argv, "--no_wandb", "--lpips_weights", "", "--device", "cuda"])
+    finally:
+        for s, h in saved.items():
+            signal.signal(s, h)
+
+
+def checkpoint_costs(torch, trainer, root: Path) -> dict:
+    """Bytes of the run's checkpoint file, and the seconds of one more save
+    (into a scratch manager) and of its restore into the train state."""
+    from sgam_neurips22_tpu_torch.core.checkpoint import CKPT_FILE, CheckpointManager, checkpoint_file
+
+    mgr = CheckpointManager(str(root), save_interval_steps=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(trainer.state.step, trainer.checkpoint_dict(), force=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.load_checkpoint_dict(mgr.restore(map_location=trainer.device))
+    torch.cuda.synchronize()
+    return {"bytes": os.path.getsize(checkpoint_file(trainer.logdir)), "file": CKPT_FILE, "save_seconds": save_s,
+            "restore_seconds": time.perf_counter() - t0}
+
+
+def fit_timing(torch, trainer, counters) -> dict:
+    """studies/trainer_host.fit_timing over FIT_TIMED_STEPS steps, with one
+    more train_step profiled for the device's busy time by layer."""
+    from sgam_neurips22_tpu_torch.studies.trainer_host import fit_timing as timing
+
+    return timing(trainer, counters, FIT_TIMED_STEPS, profile=lambda fn, s: profile_unroll(torch, fn, 1, s))
+
+
+def refresh_at_yaml_size(torch, yaml_path: str) -> dict:
+    """The k-means refresh at the codebook YAML's own buffer
+    (train_feature_buffer_size x 256 positions x embed_dim features, seeded
+    N(0, 1)) with every codeword of its n_embed inactive: k = n_embed, 20
+    Lloyd iterations, timed twice (the first includes the allocations)."""
+    from sgam_neurips22_tpu_torch.core.config import load_configs
+    from sgam_neurips22_tpu_torch.training.kmeans import KMeansState, refresh_codebook
+
+    mp = load_configs([yaml_path]).model.params
+    size, k, d = mp.online_kmeans_config.train_feature_buffer_size, mp.n_embed, mp.embed_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    buffer = torch.randn((size, 256, d), generator=g, device="cuda")
+    times = []
+    for _ in range(2):
+        state = KMeansState(torch.zeros(k, dtype=torch.int32, device="cuda"), buffer, size)
+        codebook = torch.zeros((k, d), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refresh_codebook(codebook, state, 10, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    m = size * 256
+    flop = 20 * 2.0 * m * k * d
+    return {"features": m, "width": d, "k": k, "iterations": 20, "buffer_bytes": buffer.numel() * 4, "ms": times,
+            "tflop": flop / 1e12, "f32_bound_ms": flop / F32_FLOP_PER_S * 1e3,
+            "finite": bool(torch.isfinite(codebook).all())}
+
+
+def train_codebook_cli(torch, np, root: Path, counters, failures, card) -> tuple:
+    """`python -m sgam_neurips22_tpu_torch.train --base CODEBOOK_YAML` on
+    the card at full width (batch 3, 256^2, n_embed 2048, online k-means)
+    from the packed shard (the native loader), CODEBOOK_MAX_STEPS + 1
+    steps with CODEBOOK_OVERRIDES: a refresh must fire and checkpoints be
+    written. Then fit_timing, the checkpoint's costs, and the refresh at
+    the YAML's own buffer."""
+    from sgam_neurips22_tpu_torch.training.data.packed import PackedCodebookDataset
+
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tr = run_train_cli(["--base", CODEBOOK_YAML, "-l", str(root / "logs"), "-n", "codebook",
+                        "--max_steps", str(CODEBOOK_MAX_STEPS), f"data.params.dataset_dir={root / 'data'}",
+                        *CODEBOOK_OVERRIDES])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rep = {"argv_overrides": [f"data.params.dataset_dir={root / 'data'}", *CODEBOOK_OVERRIDES,
+                              f"--max_steps {CODEBOOK_MAX_STEPS}"],
+           "steps": tr.state.step, "seconds": seconds, "launches": launches, "refreshes": tr.refreshes,
+           "packed_loader": isinstance(tr.data.train_ds, PackedCodebookDataset),
+           "checkpoint_steps": tr.ckpt.all_steps(), "best_checkpoint_steps": tr.best_ckpt.all_steps(),
+           "lr": tr.train_cfg.learning_rate, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    rep["checkpoint"] = checkpoint_costs(torch, tr, root / "ckpt_timing")
+    rep.update(fit_timing(torch, tr, counters))
+    tr.close()
+    rep["refresh_yaml_size"] = refresh_at_yaml_size(torch, CODEBOOK_YAML)
+    rep["ok"] = (rep["steps"] == CODEBOOK_MAX_STEPS + 1 and any(r["codewords"] > 0 for r in tr.refreshes)
+                 and rep["packed_loader"] and rep["checkpoint_steps"] and rep["refresh_yaml_size"]["finite"]
+                 and all(v > 0 for k, v in launches.items() if k != "zbuffer_min"))
+    if not rep["ok"]:
+        failures.append(f"train_codebook_cli: {rep}")
+    return rep, tr.logdir
+
+
+def train_conditional_cli(torch, np, root: Path, codebook_run: str, counters, failures, card) -> tuple:
+    """`python -m sgam_neurips22_tpu_torch.train --base CONDITIONAL_YAML` on
+    the card at full width (batch 16, n_src 2, 256^2, n_embed 16384, flash
+    attention) on the pose-graph scenes, warm-started from the codebook
+    run's directory, CONDITIONAL_MAX_STEPS + 1 steps, then validation and
+    test. SIGUSR1 is sent once step 1's images are written: an emergency
+    checkpoint must follow and training go on. Then `-r` the run for one
+    more step, fit_timing, and the checkpoint's costs."""
+    import signal
+    import threading
+
+    from sgam_neurips22_tpu_torch.core.checkpoint import checkpoint_file
+    from sgam_neurips22_tpu_torch.training.trainer import Trainer
+
+    emergencies, stop = [], threading.Event()
+    original = Trainer._emergency_save
+
+    def recorded(self):
+        before = self.ckpt.latest_step()
+        original(self)
+        emergencies.append({"step": self.state.step, "latest_before": before, "latest_after": self.ckpt.latest_step()})
+
+    def send_usr1(run_root: Path):
+        while not stop.is_set():
+            hits = list(run_root.glob("*/images/train/*_gs-000001.png"))
+            if hits:
+                os.kill(os.getpid(), signal.SIGUSR1)
+                return
+            time.sleep(0.02)
+
+    logs = root / "logs_conditional"
+    data = f"data.params.dataset_dir={root / 'data'}"
+    warm = f"model.params.ckpt_path={codebook_run}"
+    watcher = threading.Thread(target=send_usr1, args=(logs,), daemon=True)
+    Trainer._emergency_save = recorded
+    watcher.start()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        tr = run_train_cli(["--base", CONDITIONAL_YAML, "-l", str(logs), "-n", "conditional",
+                            "--max_steps", str(CONDITIONAL_MAX_STEPS), data, warm])
+    finally:
+        stop.set()
+        Trainer._emergency_save = original
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    cb = torch.load(checkpoint_file(codebook_run), map_location="cpu", weights_only=False)["state_dict"]
+    own = tr.state.model.state_dict()
+    warm_ok = all(torch.equal(own[k].cpu(), v) for k, v in cb.items() if k.startswith("decoder."))
+    usr1 = [e for e in emergencies if e["latest_after"] == e["step"] != e["latest_before"]]
+    steps_first = tr.state.step
+    t1 = time.perf_counter()
+    again = run_train_cli(["-r", tr.logdir, "--max_steps", str(CONDITIONAL_MAX_STEPS), data])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    val = [json.loads(x) for x in open(os.path.join(tr.logdir, "metrics.jsonl")) if "val/rec_loss" in x]
+    rep = {"argv_overrides": [data, warm, f"--max_steps {CONDITIONAL_MAX_STEPS}"], "steps": steps_first,
+           "seconds": seconds, "launches": launches, "warm_start_decoder_equal": warm_ok,
+           "emergency_checkpoints": emergencies, "sigusr1_checkpoint": bool(usr1),
+           "resumed_from": steps_first, "steps_after_resume": again.state.step, "resume_seconds": resume_s,
+           "validation_records": len(val), "val_rec_loss": [v["val/rec_loss"] for v in val],
+           "checkpoint_steps": again.ckpt.all_steps(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    rep["checkpoint"] = checkpoint_costs(torch, again, root / "ckpt_timing_conditional")
+    rep.update(fit_timing(torch, again, counters))
+    again.close()
+    tr.close()
+    rep["ok"] = (steps_first == CONDITIONAL_MAX_STEPS + 1 and warm_ok and rep["sigusr1_checkpoint"]
+                 and again.state.step > steps_first and len(val) >= 2 and all(np.isfinite(rep["val_rec_loss"]))
+                 and all(v > 0 for v in launches.values()))
+    if not rep["ok"]:
+        failures.append(f"train_conditional_cli: {rep}")
+    return rep, tr.logdir
+
+
+def generate_config_phase(torch, np, run_dir: str, counters, failures) -> dict:
+    """`python -m sgam_neurips22_tpu_torch.generate --config
+    <run>/config.yaml --ckpt <run>` (the conditional run) for 3 frames on a
+    4 x 1 grid from a seed template: every file of the reference's layout,
+    finite frames, one z-buffer and one codeword launch a frame."""
+    from sgam_neurips22_tpu_torch import generate
+    from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
+    from sgam_neurips22_tpu_torch.pipeline.png import read_png
+
+    root = Path(run_dir) / "generate_config"
+    write_template(np, np.random.default_rng(SEED + 6), root / "templates")
+    out = root / "out"
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    generate.main(["--config", os.path.join(run_dir, "config.yaml"), "--ckpt", run_dir, "--template_dir",
+                   str(root / "templates"), "--rows", "4", "--cols", "1", "--output_dir", str(out),
+                   "--resolution", str(H), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    want = {f"{p}_{step:05d}_{i:02d}_{j:02d}.{e}" for step, (i, j) in enumerate(ORDERS["zigzag"](4, 1))
+            for p, e in (("im", "png"), ("dm", "npy"), ("R", "npy"), ("t", "npy"))} | {"merged_pcds.ply"}
+    got = {p.name for p in out.iterdir()}
+    finite = all(np.isfinite(np.load(out / n)).all() for n in got if n.startswith("dm_"))
+    frames = [read_png(str(out / n)) for n in sorted(got) if n.startswith("im_")]
+    rep = {"frames": 3, "seconds": seconds, "launches": launches, "files_as_reference": got == want,
+           "missing": sorted(want - got), "finite_depth": finite, "frames_differ": len(frames) == 4 and
+           not np.array_equal(frames[1], frames[2])}
+    rep["ok"] = (rep["files_as_reference"] and finite and launches["zbuffer_min"] == 3
+                 and launches["nearest_codeword"] == 3)
+    if not rep["ok"]:
+        failures.append(f"generate_config: {rep}")
+    return rep
+
+
+PARITY_TRAINER_RES = 64  # parity_trainer's images: the full-width model on a small input
+UPDATE_FLOOR = 1e-2  # the update gate's elements: CPU first moment at least this share of its tensor's largest
+
+
+def update_gap(torch, w0: dict, w1: dict, ref_w0: dict, ref_w1: dict, ref_m: dict, skip) -> dict:
+    """The applied Adam update (weights after minus before) of a run
+    against the reference run's, per tensor but those in `skip`, over the
+    elements whose reference first moment is at least UPDATE_FLOOR of the
+    tensor's largest (clear of f32 noise: the moments agree to 1e-4 of the
+    largest): the share whose update's sign differs, and the L2 distance
+    over the reference update's norm. Adam's first update moves a weight
+    by about LR times the sign of its mean gradient, so a wrong gradient
+    shows as flipped signs."""
+    flips, gaps = {}, {}
+    for n, m in ref_m.items():
+        if n in skip:
+            continue
+        sel = m.abs() >= UPDATE_FLOOR * m.abs().max()
+        d, ref = (w1[n] - w0[n])[sel], (ref_w1[n] - ref_w0[n])[sel]
+        flips[n] = float((torch.sign(d) != torch.sign(ref)).double().mean())
+        gaps[n] = float((d - ref).norm() / ref.norm())
+    worst = max(gaps, key=gaps.get)
+    return {"flip_share_max": max(flips.values()), "gap_worst": [worst, gaps[worst]],
+            "ok": max(flips.values()) <= 1e-3 and gaps[worst] <= 2e-2}
+
+
+def parity_trainer(torch, np, root: Path, failures) -> dict:
+    """Two Trainer steps of the conditional YAML's model at full width on
+    PARITY_TRAINER_RES^2 pair data (batch 2, n_src 2), with accumulation 2
+    and the scheduler on (warm-up 2 from lr_start 0.5, so that the one
+    update, at the second step, has half the LR), from one seeded state on
+    the card and on the CPU. Gates, as parity_train's: every log of both
+    steps at rtol 1e-4 plus atol 1e-6 (d_weight 1e-3), the discriminator's
+    running statistics at rtol 1e-4, atol 1e-6; the Adam first moments
+    (the accumulated mean gradient times 1 - beta1) card against CPU
+    within 3e-2 of each tensor's largest, tensors at f32 noise (below 1e-5
+    of the largest moment) below that floor on both; the applied update
+    card against CPU (`update_gap`): no more than 1e-3 of the elements
+    with flipped signs, L2 distance within 2e-2 of the CPU update's. A
+    third run on the card plants a fault, an accumulator that drops the
+    first mini-step's gradients, and must fail the update gate."""
+    from sgam_neurips22_tpu_torch.core.config import load_configs
+    from sgam_neurips22_tpu_torch.pipeline.png import write_png
+    from sgam_neurips22_tpu_torch.training import train_step as ts_mod
+    from sgam_neurips22_tpu_torch.training import trainer as trainer_mod
+
+    data = root / "parity_data"
+    rng = np.random.default_rng(SEED + 13)
+    r = PARITY_TRAINER_RES
+    for split in ("train", "val"):
+        scene = data / split / "scene_0000"
+        scene.mkdir(parents=True)
+        frames = []
+        for i in range(6):
+            c2w = np.eye(4)
+            c2w[:3, 3] = [0.5 * i, 0, 0]
+            frames.append({"transform_matrix": c2w.tolist(), "file_path": f"./im_{i:05d}.png"})
+            write_png(str(scene / f"im_{i:05d}.png"), rng.integers(0, 256, (r, r, 3), dtype=np.uint8))
+            np.save(scene / f"dm_{i:05d}.npy", rng.uniform(8, 14, (r, r)).astype(np.float32))
+        with open(scene / "transforms.json", "w") as f:
+            json.dump({"frames": frames}, f)
+    np.save(data / "K.npy", np.array([[88.9, 0, 32.0], [0, 88.9, 32.0], [0, 0, 1.0]]))
+    cfg = load_configs([CONDITIONAL_YAML], [
+        f"data.params.dataset_dir={data}", "data.params.batch_size=2", f"data.params.image_resolution=[{r},{r}]",
+        "model.params.ckpt_path=null", "model.params.lossconfig.params.disc_start=0",
+        "model.params.lr_scheduler_config.warm_up_steps=2", "model.params.lr_scheduler_config.lr_start=0.5"])
+    step_fn, add = trainer_mod.train_step, ts_mod.GradAccumulator.add
+
+    def dropping_first(acc, grads):  # the planted fault
+        return add(acc, [torch.zeros_like(g) for g in grads] if acc.mini_step == 0 else grads)
+
+    runs = {}
+    for run, dev in (("gpu", "cuda"), ("cpu", "cpu"), ("gpu_fault", "cuda")):
+        seen = []
+
+        def recording(*args):
+            state, logs = step_fn(*args)
+            seen.append({k: float(v) for k, v in logs.items()})
+            return state, logs
+
+        trainer_mod.train_step = recording
+        if run == "gpu_fault":
+            ts_mod.GradAccumulator.add = dropping_first
+        try:
+            t0 = time.perf_counter()
+            tr = trainer_mod.Trainer(cfg, str(root / f"parity_{run}"), seed=SEED, use_wandb=False, max_steps=1,
+                                     install_signals=False, accumulate_grad_batches=2, device=dev)
+            params = ts_mod.split_params(tr.state.model, tr.train_cfg.phase)[0]
+            w0 = {n: p.detach().cpu().double() for n, p in params}
+            tr.fit(epochs=1)
+            tr.close()
+        finally:
+            trainer_mod.train_step = step_fn
+            ts_mod.GradAccumulator.add = add
+        runs[run] = {"logs": seen, "seconds": time.perf_counter() - t0, "w0": w0,
+                     "m": {n: tr.state.opt_ae.state[p]["exp_avg"].detach().cpu().double() for n, p in params},
+                     "w": {n: p.detach().cpu().double() for n, p in params},
+                     "stats": {n: b.detach().cpu() for n, b in tr.state.disc.named_buffers()},
+                     "lr": tr.state.opt_ae.param_groups[0]["lr"], "step": tr.state.step}
+    g, c, fault = runs["gpu"], runs["cpu"], runs["gpu_fault"]
+    log_err, logs_ok = [], len(g["logs"]) == len(c["logs"]) == 2
+    for gl, cl in zip(g["logs"], c["logs"]):
+        rtol = {k: 1e-3 if k.endswith("d_weight") else 1e-4 for k in cl}
+        log_err.append({k: abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-30) for k in cl})
+        logs_ok = logs_ok and all(abs(gl[k] - cl[k]) <= rtol[k] * abs(cl[k]) + 1e-6 for k in cl)
+    floor = 1e-5 * max(float(m.abs().max()) for m in c["m"].values())
+    noise = sorted(n for n, m in c["m"].items() if float(m.abs().max()) < floor)
+    noise_ok = all(float(x["m"][n].abs().max()) < floor for x in (g, c) for n in noise)
+    m_err = {n: float((g["m"][n] - c["m"][n]).abs().max() / c["m"][n].abs().max()) for n in c["m"] if n not in noise}
+    stats_ok = all(torch.allclose(g["stats"][n], x, rtol=1e-4, atol=1e-6) for n, x in c["stats"].items())
+    same_init = all(torch.equal(g["w0"][n], w) for n, w in c["w0"].items())
+    update = update_gap(torch, g["w0"], g["w"], c["w0"], c["w"], c["m"], noise)
+    planted = update_gap(torch, fault["w0"], fault["w"], c["w0"], c["w"], c["m"], noise)
+    worst = max(m_err.items(), key=lambda kv: kv[1])
+    res = {"resolution": r, "batch": 2, "accumulate_grad_batches": 2, "update_lr": c["lr"],
+           "steps": [g["step"], c["step"]], "gpu_seconds": g["seconds"], "cpu_seconds": c["seconds"],
+           "log_rel_err": log_err, "logs_ok": logs_ok, "moment_worst_gpu_vs_cpu": worst, "moment_noise": noise,
+           "moments_ok": noise_ok and worst[1] <= 3e-2, "same_init": same_init, "update": update,
+           "planted_fault_update": planted, "running_stats_ok": stats_ok}
+    res["ok"] = (res["steps"] == [2, 2] and c["lr"] == g["lr"] > 0 and logs_ok and res["moments_ok"] and same_init
+                 and update["ok"] and not planted["ok"] and stats_ok)
+    if not res["ok"]:
+        failures.append(f"parity_trainer: {res}")
+    return res
+
+
+def trainer_phases(torch, np, counters, failures, card, paths: dict, report: dict) -> None:
+    """The trainer's four phases, each emitted as it ends."""
+    import tempfile
+
+    from sgam_neurips22_tpu_torch.studies.trainer_host import write_train_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        (root / "data").mkdir()
+        by_filter = write_train_dataset(root / "data", H, W, SEED + 11, DATA_SCENES, DATA_FRAMES, PAETH_EVERY)
+        rates = loader_rates(np, root / "data", by_filter)
+        rates.update(seconds=time.perf_counter() - t0, card=card)
+        report["loader"] = rates
+        emit({"phase": "loader", **rates})
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cb, cb_run = train_codebook_cli(torch, np, root, counters, failures, card)
+        cb["phase_seconds"] = time.perf_counter() - t0
+        paths["train_codebook_cli"] = cb["launches"]
+        report["train_codebook_cli"] = cb
+        emit({"phase": "train_codebook_cli", **cb})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.perf_counter()
+        cond, cond_run = train_conditional_cli(torch, np, root, cb_run, counters, failures, card)
+        cond["phase_seconds"] = time.perf_counter() - t0
+        paths["train_conditional_cli"] = cond["launches"]
+        report["train_conditional_cli"] = cond
+        emit({"phase": "train_conditional_cli", **cond})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.perf_counter()
+        gen = generate_config_phase(torch, np, cond_run, counters, failures)
+        gen["phase_seconds"] = time.perf_counter() - t0
+        paths["generate_config"] = gen["launches"]
+        report["generate_config"] = gen
+        emit({"phase": "generate_config", **gen})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.perf_counter()
+        par = parity_trainer(torch, np, root, failures)
+        par["phase_seconds"] = time.perf_counter() - t0
+        report["parity_trainer"] = par
+        emit({"phase": "parity_trainer", **par})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="directory for the detailed JSON report")
@@ -2261,6 +2731,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parity_t16 = parity_train_bf16(torch, np, failures)
     emit({"phase": "parity_train_bf16", "seconds": time.perf_counter() - t0, **parity_t16})
+    torch.cuda.empty_cache()
+
+    # 19. the trainer through its entry points: the loader's rates, the
+    #     codebook and conditional YAMLs at full width through the train
+    #     CLI, generate --config on the trained run, and two Trainer steps
+    #     on the card against the CPU
+    trainer_phases(torch, np, counters, failures, card, paths, report)
 
     main_path = {"zbuffer_min": "unroll", "nearest_codeword": "unroll", "flash_attention_fwd": "unroll_batched",
                  "flash_attention_dq": "train", "flash_attention_dkv": "train"}

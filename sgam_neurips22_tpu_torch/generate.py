@@ -8,20 +8,22 @@ Usage:
       --template_dir templates/clevr-infinite [--use_rgbd_integration] [--device cpu]
 
 Differences from `generate.py`: `--device` picks the card (`cuda`, the
-default) or the CPU; `--config` (a trained-model YAML) raises, because the
-YAML loader is not ported yet; there is no `--matmul_precision`, because
-the port keeps TF32 off (`core.device.resolve_device`). Without `--ckpt`
-the model takes seeded random weights (`core.state_dict.random_state_dict`,
-seed 0).
+default) or the CPU; there is no `--matmul_precision`, because the port
+keeps TF32 off (`core.device.resolve_device`). `--config` takes the model
+configuration from a trained-model YAML (a run's config.yaml), and
+`--ckpt` may be a port run directory. Without `--ckpt` the model takes
+seeded random weights (`core.state_dict.random_state_dict`, seed 0).
 """
 from __future__ import annotations
 
 import argparse
 import glob
 import os
+from dataclasses import replace
 
+from sgam_neurips22_tpu_torch.core.config import load_yaml
 from sgam_neurips22_tpu_torch.core.state_dict import load_into, random_state_dict
-from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
+from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel, VQModelConfig
 from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration, SceneGenConfig
 from sgam_neurips22_tpu_torch.pipeline.templates import load_seed_frames
 from sgam_neurips22_tpu_torch.serving import flagship_config, load_inference_params
@@ -30,8 +32,9 @@ from sgam_neurips22_tpu_torch.serving import flagship_config, load_inference_par
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dataset", default="clevr-infinite", choices=["clevr-infinite", "google_earth"])
-    p.add_argument("--ckpt", default=None, help="reference torch .ckpt (or a bare state_dict)")
-    p.add_argument("--config", default=None, help="trained-model YAML (not ported yet: raises)")
+    p.add_argument("--ckpt", default=None,
+                   help="reference torch .ckpt (or a bare state_dict), or a port training run directory")
+    p.add_argument("--config", default=None, help="trained-model YAML (the model configuration)")
     p.add_argument("--template_dir", default=None)
     p.add_argument("--output_dir", default=None)
     p.add_argument("--use_rgbd_integration", action="store_true")
@@ -60,14 +63,17 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     opt = parse_args(argv)
-    if opt.config:
-        raise NotImplementedError(
-            "--config needs the trained-model YAML loader, which the port does not have yet (ROADMAP.md, queue "
-            "item 1.4); the port runs the flagship configuration of --dataset"
-        )
     if opt.batch_seeds and opt.use_rgbd_integration:
         raise SystemExit("--batch_seeds currently supports splat conditioning")
-    model = VQModel(flagship_config(opt.dataset, opt.compute_dtype))
+    if opt.config:
+        yaml_cfg = load_yaml(opt.config)
+        mp = yaml_cfg.model.params
+        model_cfg = VQModelConfig.from_config(mp, mp.get("data_config") or yaml_cfg.get("data", {}).get("params", {}))
+        if opt.compute_dtype != "float32":
+            model_cfg = replace(model_cfg, ddconfig=replace(model_cfg.ddconfig, compute_dtype=opt.compute_dtype))
+    else:
+        model_cfg = flagship_config(opt.dataset, opt.compute_dtype)
+    model = VQModel(model_cfg)
     load_into(model, random_state_dict(model, 0))
     if opt.ckpt and os.path.exists(opt.ckpt):
         load_inference_params(opt.ckpt, model)

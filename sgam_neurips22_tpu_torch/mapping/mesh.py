@@ -3,30 +3,24 @@
 native C++ marching-tetrahedra source, `native/mesh_extract.cpp`, called
 through ctypes; mesh export is host-side work after the unroll.
 
-The port builds that one source with g++ at first use into `build/` beside
-this package (listed in .gitignore), under a file name that carries a hash
-of the source and the flags, and loads it only if its ABI version is the
-one this binding was written for. Nothing here runs at import time, and
-nothing is written into `native/`.
+The port builds that one source with g++ at first use (`core.native`, with
+native/Makefile's flags, so that the soup equals the JAX package's) and
+loads it only if its ABI version is the one this binding was written for.
+Nothing here runs at import time, and nothing is written into `native/`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-from sgam_neurips22_tpu_torch.ops.cuda_build import BUILD_DIR, PACKAGE
+from sgam_neurips22_tpu_torch.core import native
+from sgam_neurips22_tpu_torch.ops.cuda_build import BUILD_DIR, PACKAGE  # noqa: F401  (BUILD_DIR: where lib_path lies)
 
 SOURCE = PACKAGE.parent / "native" / "mesh_extract.cpp"
-# the flags of native/Makefile, so that the soup equals the JAX package's
-CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 ABI_VERSION = 4  # native sgam_native_abi_version() this binding calls through
 _F32P = ctypes.POINTER(ctypes.c_float)
 _lock = threading.Lock()
@@ -34,33 +28,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libsgam_mesh-{digest}.so"
-
-
-def build() -> Path:
-    """Compile `native/mesh_extract.cpp` unless its library exists; raises
-    with the compiler's output if the build fails."""
-    out = lib_path()
-    if out.exists():
-        return out
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("g++ not found (set CXX); the mesh extractor cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"mesh extractor build failed ({cxx} exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return native.lib_path(SOURCE, "libsgam_mesh")
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(native.build(SOURCE, "libsgam_mesh")))
             lib.sgam_native_abi_version.restype = ctypes.c_int32
             got = lib.sgam_native_abi_version()
             if got != ABI_VERSION:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
+from typing import Any, Dict
 
 import torch
 from torch import nn
@@ -63,6 +64,18 @@ class DDConfig:
     remat: bool = False
     # activation dtype of the conv stack: "float32" (parity) or "bfloat16"
     compute_dtype: str = "float32"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DDConfig":
+        """From a reference-schema `ddconfig` node, lists as tuples. Of the
+        JAX fields the port does not have, `flash_attention` is ignored
+        (`nn.AttnBlock` picks flash attention by batch) and `double_z`,
+        `dropout` and `resamp_with_conv` must hold their reference values."""
+        for key, want in (("double_z", False), ("dropout", 0.0), ("resamp_with_conv", True)):
+            if key in d and d[key] != want:
+                raise ValueError(f"ddconfig.{key}={d[key]!r}: the port supports {want!r} only")
+        known = set(cls.__dataclass_fields__)
+        return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items() if k in known})
 
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:

@@ -7,7 +7,8 @@ inputs are f32 in JAX too.
 
 Public methods take and return NHWC, as the JAX functions do; the conv
 stack inside runs NCHW. Parameter names are the reference state_dict's:
-conv_in (5->4 1x1 folding the extrapolation mask in), encoder, decoder,
+conv_in (5->4 1x1 folding the extrapolation mask in; absent without
+use_extrapolation_mask), encoder, decoder,
 quant_conv, post_quant_conv, quantize.embedding.weight.
 """
 from __future__ import annotations
@@ -25,17 +26,34 @@ from sgam_neurips22_tpu_torch.models.vqgan.quantize import quantize, quantize_to
 
 @dataclass(frozen=True)
 class VQModelConfig:
-    """The model with conv_in folding the extrapolation mask into the input
-    (the reference's use_extrapolation_mask=True), and the fields of the
-    JAX `VQModelConfig` that the training step reads."""
+    """The fields of the JAX `VQModelConfig`. With use_extrapolation_mask,
+    conv_in folds the extrapolation mask into the input; below
+    vq_step_threshold train steps the trainer skips quantisation."""
 
     ddconfig: DDConfig
     n_embed: int
     embed_dim: int
     phase: str = "codebook"  # 'codebook' | 'conditional_generation'
+    use_extrapolation_mask: bool = True
+    vq_step_threshold: int = 0
     beta: float = 0.25
     dataset: str = "clevr-infinite"
     depth_range: Optional[tuple] = None
+
+    @classmethod
+    def from_config(cls, model_params: dict, data_params: dict | None = None) -> "VQModelConfig":
+        """From a reference-schema YAML node (model.params, data.params)."""
+        data_params = data_params or {}
+        return cls(
+            ddconfig=DDConfig.from_dict(dict(model_params["ddconfig"])),
+            n_embed=model_params["n_embed"],
+            embed_dim=model_params["embed_dim"],
+            phase=model_params.get("phase", "codebook"),
+            use_extrapolation_mask=model_params.get("use_extrapolation_mask", True),
+            vq_step_threshold=model_params.get("vq_step_threshold", 0),
+            dataset=data_params.get("dataset", "clevr-infinite"),
+            depth_range=tuple(data_params["depth_range"]) if "depth_range" in data_params else None,
+        )
 
 
 class ForwardResult(NamedTuple):
@@ -67,7 +85,7 @@ class VQModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         dd = cfg.ddconfig
-        self.conv_in = conv2d(dd.in_channels + 1, dd.in_channels, 1)
+        self.conv_in = conv2d(dd.in_channels + 1, dd.in_channels, 1) if cfg.use_extrapolation_mask else None
         self.encoder = Encoder(dd)
         self.decoder = Decoder(dd)
         self.quant_conv = conv2d(dd.z_channels, cfg.embed_dim, 1)
@@ -80,7 +98,9 @@ class VQModel(nn.Module):
 
     def _fold_mask(self, x, extrapolation_mask):
         """NHWC x -> NCHW input with the mask channel folded in by conv_in
-        (zeros when no mask is given)."""
+        (zeros when no mask is given); x alone without conv_in."""
+        if self.conv_in is None:
+            return _nchw(x)
         if extrapolation_mask is None:
             m = torch.zeros((*x.shape[:3], 1), dtype=x.dtype, device=x.device)
         else:

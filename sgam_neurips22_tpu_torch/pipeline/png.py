@@ -1,5 +1,7 @@
-"""PNG files without Pillow: the generated frames' writer and the seed
-templates' reader, from the standard library's `zlib` and `struct`.
+"""PNG files without Pillow: the generated frames' writer and the
+templates' and datasets' reader, from the standard library's `zlib` and
+`struct`, with the row filters undone in C++ (`csrc/png_unfilter.cpp`,
+built with g++ at first use by `core.native`).
 
 The writer stores 8-bit gray, RGB or RGBA rows unfiltered. The reader
 takes what Pillow and other encoders write for such images: 8-bit gray,
@@ -9,14 +11,21 @@ naming the format.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 import zlib
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> colour type written
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "png_unfilter.cpp"
+_lock = threading.Lock()
+_unfilter_lib: Optional[ctypes.CDLL] = None
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -39,41 +48,30 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + _chunk(b"IEND", b""))
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the row filters: [H, stride] uint8 scanlines."""
-    out = np.zeros((h + 1, stride), np.uint8)  # row 0: the zero row above the first
-    pos = 0
-    for y in range(1, h + 1):
-        ftype, line = raw[pos], np.frombuffer(raw, np.uint8, stride, pos + 1)
-        pos += 1 + stride
-        up = out[y - 1]
-        if ftype == 0:
-            out[y] = line
-        elif ftype == 1:  # Sub: a running sum of each byte lane, mod 256
-            out[y] = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint64).reshape(-1) & 0xFF
-        elif ftype == 2:  # Up
-            out[y] = line + up
-        elif ftype in (3, 4):  # Average, Paeth: each byte needs its reconstructed left neighbour
-            row, prev, filt = bytearray(stride), up.tolist(), line.tolist()
-            for x in range(stride):
-                a = row[x - bpp] if x >= bpp else 0
-                if ftype == 3:
-                    row[x] = (filt[x] + ((a + prev[x]) >> 1)) & 0xFF
-                else:
-                    c = prev[x - bpp] if x >= bpp else 0
-                    row[x] = (filt[x] + _paeth(a, prev[x], c)) & 0xFF
-            out[y] = np.frombuffer(bytes(row), np.uint8)
-        else:
-            raise ValueError(f"PNG row {y - 1}: unknown filter type {ftype}")
-    return out[1:]
+    """Undo the row filters: [H, stride] uint8 scanlines, in C++
+    (`csrc/png_unfilter.cpp`; the interpreter lock is released meanwhile)."""
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes; its header needs {h * (stride + 1)}")
+    out = np.empty((h, stride), np.uint8)
+    bad = _lib().png_unfilter(raw, h, stride, bpp, out.ctypes.data)
+    if bad:
+        raise ValueError(f"PNG row {bad - 1}: unknown filter type {raw[(bad - 1) * (stride + 1)]}")
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    global _unfilter_lib
+    with _lock:
+        if _unfilter_lib is None:
+            from sgam_neurips22_tpu_torch.core import native
+
+            lib = ctypes.CDLL(str(native.build(_SOURCE, "libsgam_png")))
+            lib.png_unfilter.restype = ctypes.c_int64
+            lib.png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_void_p]
+            _unfilter_lib = lib
+        return _unfilter_lib
 
 
 def read_png(path: str) -> np.ndarray:

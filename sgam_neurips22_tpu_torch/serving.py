@@ -1,6 +1,6 @@
 """The flagship model configurations and inference weights — port of
-`flagship_config` and the reference-checkpoint branch of
-`load_inference_params` in `sgam_neurips22_tpu/serving.py`."""
+`flagship_config` and `load_inference_params` (its reference-checkpoint
+and run-directory branches) in `sgam_neurips22_tpu/serving.py`."""
 from __future__ import annotations
 
 import os
@@ -8,6 +8,7 @@ from dataclasses import replace
 
 import torch
 
+from sgam_neurips22_tpu_torch.core.checkpoint import CKPT_FILE, checkpoint_file
 from sgam_neurips22_tpu_torch.models.vqgan.autoencoder import DDConfig
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModelConfig
 
@@ -36,24 +37,32 @@ def flagship_config(dataset: str = "clevr-infinite", compute_dtype: str = "float
 
 
 def load_inference_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a reference torch checkpoint (a Lightning `.ckpt`, or a bare
-    state_dict) into `model`, as the JAX package merges one: the
-    `state_dict` entry if there is one, without the loss's `loss.*` and
-    `perceptual_loss.*` tensors; every other tensor whose name and shape
-    the model has replaces the model's, and the rest of the model keeps
-    its weights (a non-strict load). The checkpoint is unpickled whole, as
-    the reference's loader does: load only files you trust.
+    """Load a checkpoint into `model`, as the JAX package merges one: a
+    reference torch checkpoint (a Lightning `.ckpt`, or a bare state_dict),
+    or the port trainer's own, given as its run directory, the run's
+    `checkpoints/` or one step directory (the latest step first). The
+    `state_dict` entry is used if there is one, without the loss's `loss.*`
+    and `perceptual_loss.*` tensors; every other tensor whose name and
+    shape the model has replaces the model's, and the rest of the model
+    keeps its weights (a non-strict load). The checkpoint is unpickled
+    whole, as the reference's loader does: load only files you trust.
 
     The JAX package's other forms, a `.pkl` of its parameter tree and an
     orbax checkpoint directory of its trainer, hold JAX pytrees and raise
-    here (ROADMAP.md, queue item 1.4 / 1.5)."""
+    here (ROADMAP.md, queue item 1.5)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    if os.path.isdir(path) or path.endswith(".pkl"):
+    if os.path.isdir(path):
+        ckpt = checkpoint_file(path)
+        if ckpt is None:
+            raise NotImplementedError(
+                f"{path}: no port checkpoint (<step>/{CKPT_FILE}) here; the JAX package's orbax checkpoints hold "
+                "JAX parameter trees, which the port does not read (ROADMAP.md, queue item 1.5)")
+        path = ckpt
+    elif path.endswith(".pkl"):
         raise NotImplementedError(
-            f"{path}: the JAX package's .pkl and orbax checkpoints hold JAX parameter trees, which the port does "
-            "not read (ROADMAP.md, queue items 1.4-1.5); pass a reference torch .ckpt"
-        )
+            f"{path}: the JAX package's .pkl holds a JAX parameter tree, which the port does not read "
+            "(ROADMAP.md, queue item 1.5); pass a reference torch .ckpt or a port run directory")
     obj = torch.load(path, map_location="cpu", weights_only=False)
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     own = model.state_dict()

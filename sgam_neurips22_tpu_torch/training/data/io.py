@@ -1,7 +1,8 @@
 """Image and depth loading (host-side numpy) — port of the loaders in
-`sgam_neurips22_tpu/training/data/io.py` that seed templates need: RGB
-PNGs to [-1, 1] (x / 127.5 - 1), depth .npy files resized by torch's
-nearest rule, and CLEVR's ray depth to z-depth.
+`sgam_neurips22_tpu/training/data/io.py` that seed templates and the
+training datasets need: RGB PNGs to [-1, 1] (x / 127.5 - 1), depth .npy
+files resized by torch's nearest rule, CLEVR's ray depth to z-depth, and
+the scaled-inverse-depth channel.
 
 PNGs are decoded without Pillow (`pipeline.png`). Only a PNG whose size
 differs from the requested resolution needs Pillow, for the reference's
@@ -66,3 +67,16 @@ def ray_to_z_np(depth: np.ndarray, k: np.ndarray) -> np.ndarray:
     h, w = depth.shape[:2]
     xs, ys = np.meshgrid(np.linspace(0, w - 1, w), np.linspace(0, h - 1, h))
     return depth * k[0][0] / np.sqrt(k[0][0] ** 2 + (k[0][2] - ys - 0.5) ** 2 + (k[1][2] - xs - 0.5) ** 2)
+
+
+def encode_disparity_np(depth: np.ndarray, dataset: str) -> np.ndarray:
+    """Scaled inverse depth in [-1, 1] (the reference's data/base.py)."""
+    if dataset == "google_earth":
+        inv = 1.0 / (depth + 10.0)
+        unit = (inv - 1 / 14.765625) / (1 / 10.099975586 - 1 / 14.765625)
+    elif dataset == "clevr-infinite":
+        inv = 1.0 / depth
+        unit = (inv - 1 / 16) / (1 / 7 - 1 / 16)
+    else:
+        raise NotImplementedError(dataset)
+    return (2.0 * unit - 1.0).astype(np.float32)

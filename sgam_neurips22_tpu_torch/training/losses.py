@@ -19,7 +19,7 @@ Two rules of the JAX functions that PyTorch does not give for free:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +46,13 @@ class LossConfig:
     disc_loss: str = "hinge"
     use_discriminative_loss: bool = True
     kernel_width: int = 4
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LossConfig":
+        """From a `lossconfig.params` node; keys that are not fields are
+        dropped, as in JAX."""
+        known = set(cls.__dataclass_fields__)
+        return cls(**{k: v for k, v in d.items() if k in known})
 
     @property
     def disc_config(self) -> DiscConfig:

@@ -167,20 +167,23 @@ def test_generate_cli_map_requery_matches_jax(jax_generate, assets, tmp_path):
 
 def test_generate_cli_options(assets, tmp_path):
     """--batch_seeds writes <output_dir>_seed<k>; with map re-query it
-    exits as generate.py does; --config raises (no YAML loader yet)."""
+    exits as generate.py does; --config reads its YAML (a missing file
+    raises; tests/test_torch_port_trainer.py runs --config on a trained
+    run against generate.py)."""
     _run_port(_flags(assets, tmp_path / "batch", "--rows", "2", "--cols", "1", "--batch_seeds"))
     files = os.listdir(str(tmp_path / "batch") + "_seed0")
     assert sum(n.startswith("im_") for n in files) == 2 and "merged_pcds.ply" in files
     with pytest.raises(SystemExit, match="splat conditioning"):
         _run_port(_flags(assets, tmp_path / "x", "--batch_seeds", "--use_rgbd_integration"))
-    with pytest.raises(NotImplementedError, match="YAML"):
+    with pytest.raises(FileNotFoundError, match="model.yaml"):
         _run_port(_flags(assets, tmp_path / "y", "--config", "model.yaml"))
 
 
 def test_load_inference_params(assets, tmp_path):
     """The reference .ckpt loads into the port as the JAX weights do
     (loss tensors dropped); a tensor of another shape keeps the model's
-    own; the JAX package's .pkl and orbax forms raise."""
+    own; the JAX package's .pkl and a directory without a port checkpoint
+    (an orbax one) raise."""
     _, ckpt, _, params = assets
     model = VQModel(port_config(TINY))
     load_inference_params(ckpt, model)

@@ -185,9 +185,18 @@ def test_eval_step_matches_jax(lpips_params):
 
 
 @pytest.mark.parametrize("option", [
-    {"do_online_kmeans_clustering": True}, {"accumulate_grad_batches": 2}, {"lr_scheduler": object()},
+    {"online_kmeans": t_train.OnlineKMeansConfig(do_online_kmeans_clustering=True)}, {"accumulate_grad_batches": 2},
+    {"lr_scheduler": t_train.SchedulerConfig()},
 ])
 def test_unported_options_raise(option):
+    """The three options that raised until the trainer slice ported them
+    (online k-means, gradient accumulation, the LR scheduler) now build
+    their state; tests/test_torch_port_trainer.py holds each against JAX.
+    A phase that is neither of the two still raises."""
     cfg = dataclasses.replace(port_train_config(CFG), **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.create_train_state(cfg, device="cpu")
+    state = t_train.create_train_state(cfg, device="cpu")
+    assert (state.kmeans is not None) == ("online_kmeans" in option)
+    assert (state.accumulators is not None) == ("accumulate_grad_batches" in option)
+    bad = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, phase="decoding"))
+    with pytest.raises(ValueError, match="phase"):
+        t_train.create_train_state(bad, device="cpu")

@@ -96,14 +96,16 @@ def test_flagship_layout_matches_jax():
 def test_flagship_config_matches_jax(dataset, dtype):
     """Every field of the port's flagship_config(dataset, compute_dtype)
     (VQModelConfig and its DDConfig) equals the same-named field of JAX's,
-    and JAX's fields that the port does not have hold the values the port
-    hard-codes (the extrapolation mask in conv_in, no dropout; flash
-    attention chosen by the port's AttnBlock from the batch size)."""
+    and JAX's DDConfig fields that the port does not have hold the values
+    the port hard-codes (no dropout, no double_z; flash attention chosen by
+    the port's AttnBlock from the batch size). Every VQModelConfig field of
+    JAX's is the port's too (use_extrapolation_mask and vq_step_threshold
+    since the trainer slice)."""
     import dataclasses
 
     got, want = flagship_config(dataset, dtype), j_flagship_config(dataset, dtype)
     only_jax = {
-        "model": {"use_extrapolation_mask": True, "vq_step_threshold": 0},
+        "model": {},
         "ddconfig": {"dropout": 0.0, "resamp_with_conv": True, "double_z": False, "flash_attention": None},
     }
     for part, ours, theirs in (("model", got, want), ("ddconfig", got.ddconfig, want.ddconfig)):
