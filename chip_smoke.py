@@ -27,11 +27,12 @@ the device's idle share):
   flash-attention kernel never; then parity, one full-width step on the
   card against the same step on the CPU;
 - unroll_batched: 8 scenes at once through `scene_expansion_batched`
-  (batch 8, flash attention): one z-buffer and one codeword launch and 7
+  (batch 8, flash attention; BATCHED_F32_FRAMES frames a scene, cut for
+  the run's time): one z-buffer and one codeword launch and 7
   flash-attention launches per step; then parity_batched, one step of 2
   scenes on the card against the CPU;
 - unroll_bf16, unroll_batched_bf16: the same two unrolls with the model
-  in bf16 (bench.py's default --model_dtype), the same launches, the
+  in bf16 (bench.py's default --model_dtype; FRAMES frames a scene), the same launches, the
   layers beside the f32 unroll's, the batch-1 frames' PSNR against the
   f32 frames (not gated); each followed by its step on the card against
   the CPU's bf16 step (parity_bf16, parity_batched_bf16);
@@ -138,7 +139,23 @@ the device's idle share):
   step, and the same timings; generate_config,
   the generate CLI with --config and --ckpt on the conditional run, 3
   frames; parity_trainer, two Trainer steps (accumulation 2, the
-  scheduler on) on the card against the CPU under parity_train's gates.
+  scheduler on) on the card against the CPU under parity_train's gates;
+- data parallelism (the port's parallel/, with the rank functions of
+  sgam_neurips22_tpu_torch/studies/data_parallel.py): dp_world1, the
+  conditional YAML's step at batch 16 (f32) through the data-parallel path
+  in one spawned rank over NCCL against the plain one-process step from the
+  same state, under parity_train's gates, beside the distance between two
+  plain steps (the floor), the rank's launches a step, NCCL's device time
+  and both processes' peaks; dp_two_ranks_one_card, two gloo ranks sharing
+  the card (2 rows each) against the one-process step at batch 4 (logs,
+  d_weight, the applied update, the running statistics), with two planted
+  faults (BatchNorm on local statistics, the adaptive weight from local
+  gradients) that must fail, and every rank's parameters, Adam moments and
+  k-means state bit-equal after two steps and a refresh; scenes_sharded, in
+  the same two ranks, the 8-scene unrolls split 4 a rank against the
+  unsharded ones: one f32 step within 1e-5 relative, the bf16 splat
+  unroll's PSNR per scene (reported), the bf16 map unroll's stats summed
+  over the ranks (their recycled slots equal to the ranks' per-scene sum).
 
 Each phase prints one JSON line with its seconds; --out DIR also writes the
 details to DIR/chip_smoke.json and nvcc's register report to
@@ -150,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -167,6 +185,7 @@ H = W = 256
 FRAMES = 24  # frames generated per unroll: the flythrough grid is (FRAMES + 1) x 1
 TOPK_FRAMES = 8  # frames of each top-k unroll
 SCENES = 8  # scenes of the batched unroll, as bench.py's batched_8_scenes
+BATCHED_F32_FRAMES = 12  # frames a scene of the f32 8-scene unroll (cut from FRAMES for the run's time)
 # the forward: the main path's two shapes, ragged S, and together every (C,
 # BQ) tile that its launch rule picks on an H100 (BQ 64 / 16, 32 / 16 at C=512);
 # the B=16 ragged shapes run the large tiles with a partial last query block,
@@ -826,6 +845,7 @@ def model_gflop(torch, cfg) -> dict:
 
 
 KERNEL_GROUPS = (  # profiler kernel name -> layer, first match wins
+    ("nccl", "collectives (NCCL)"),
     ("flash_fwd_kernel", "ours: flash_attention_fwd"),
     ("flash_dq_kernel", "ours: flash_attention_dq"),
     ("flash_dkv_kernel", "ours: flash_attention_dkv"),
@@ -2090,7 +2110,7 @@ def run_train_cli(argv: list, observe=None):
 
     saved = {s: signal.getsignal(s) for s in (signal.SIGUSR1, signal.SIGUSR2, signal.SIGTERM)}
     try:
-        return train_cli.main([*argv, "--no_wandb", "--lpips_weights", "", "--device", "cuda"])
+        return train_cli.main([*argv, "--no_wandb", "--lpips_weights", "", "--device", "cuda", "--n_devices", "1"])
     finally:
         for s, h in saved.items():
             signal.signal(s, h)
@@ -2473,6 +2493,173 @@ def trainer_phases(torch, np, counters, failures, card, paths: dict, report: dic
         par["phase_seconds"] = time.perf_counter() - t0
         report["parity_trainer"] = par
         emit({"phase": "parity_trainer", **par})
+
+
+# ---------------------------------------------------------- data parallel
+# (the port's parallel/: the step as one rank of a process group, and the
+# scene-sharded unroll; the rank functions live in studies/data_parallel.py)
+DP_REHEARSAL_BATCH = 4  # dp_two_ranks_one_card: two gloo ranks x 2 rows on one card
+DP_STEP_WANT = {"zbuffer_min": 1, "nearest_codeword": 1, "flash_attention_fwd": 7, "flash_attention_dq": 7,
+                "flash_attention_dkv": 7}  # launches a step of the conditional YAML (no remat)
+
+
+def dp_world1(torch, np, failures, card) -> dict:
+    """The conditional YAML's step at batch 16, f32, through the data-parallel
+    path in one spawned rank over NCCL (its all-reduces run, on one rank),
+    against the plain one-process train_step from the same seeded state,
+    at parity_train's gates and each trainable gradient within 3e-2 of
+    its tensor's largest (`studies.data_parallel.hold_step`); beside it the
+    same distance between two plain steps on the card (cuDNN's backward is
+    not bit-reproducible: the floor). The rank's launches a step, its NCCL
+    kernels' device time, its ms/step; this process frees its cached
+    memory before the spawn, and both peaks are reported."""
+    import tempfile
+
+    from sgam_neurips22_tpu_torch.parallel import distributed
+    from sgam_neurips22_tpu_torch.studies import data_parallel as dp
+
+    cfg = dp.train_cfg(TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain = [dp.run_step(torch, np, cfg, TRAIN_BATCH, 0) for _ in range(2)]
+    plain_s = time.perf_counter() - t0
+    parent_peak = torch.cuda.max_memory_allocated() / 1e9
+    floor = dp.hold_step(torch, plain[1], plain[0], grads=True)
+    gc.collect()  # the plain steps' states, before this process gives the card's memory back
+    torch.cuda.empty_cache()
+    parent_reserved = torch.cuda.memory_reserved() / 1e9
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.launch(dp.rank_train_step, 1, args=({"bs": TRAIN_BATCH, "out": tmp},))
+        rank = torch.load(Path(tmp) / "train_rank0.pt", weights_only=False)
+    rank_s = time.perf_counter() - t0
+    gate = dp.hold_step(torch, rank, plain[0], grads=True)
+    rep = {"batch": TRAIN_BATCH, "backend": "nccl", "ranks": 1, "plain_seconds": plain_s, "rank_seconds": rank_s,
+           "vs_plain": gate, "plain_vs_plain_floor": floor, "launches_per_step": rank["launches_per_step"],
+           "ms_per_step": rank["ms_per_step"], "images_per_s": rank["images_per_s"],
+           "collective_ms": rank["collective_ms"], "device_idle_share": rank["device_idle_share"],
+           "rank_ms_by_layer": rank["ms_by_layer"], "peak_mem_gb": {"parent": parent_peak, "rank": rank["peak_mem_gb"]},
+           "parent_reserved_gb_at_spawn": parent_reserved,
+           "card": card}
+    rep["ok"] = gate["ok"] and rank["launches_per_step"] == DP_STEP_WANT
+    if not rep["ok"]:
+        failures.append(f"dp_world1: {rep}")
+    return rep
+
+
+def rel_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, keep) -> tuple:
+    """Two gloo ranks on this card (`studies.data_parallel.rank_rehearsal`),
+    DP_REHEARSAL_BATCH / 2 rows each, f32, the conditional YAML's step with
+    the k-means bookkeeping on: the first step against the one-process
+    step at batch DP_REHEARSAL_BATCH (`hold_step`: logs with d_weight,
+    the applied update, the running statistics), which the planted fault
+    of BatchNorm on local statistics must fail; the other planted fault,
+    the adaptive weight from local gradients, is reported (at this batch of
+    random 256^2 images the halves' mean d_weight lies 2.4e-4 from the whole
+    batch's on an H100, inside the 1e-3 gate; the CPU test's TINY batch
+    catches it); after a second step and a k-means refresh from a
+    generator of each rank's own seed, the two ranks' parameters, buffers,
+    Adam moments and k-means state bit-equal. gloo takes card tensors as
+    they are on this torch build (no copy through the host).
+
+    Then scenes_sharded, in the same two ranks: the 8-scene unrolls split
+    4 a rank against the unsharded unroll on this card: one f32 step (grid
+    2 x 1) within 1e-5 relative (rgb and depth); the bf16 splat unroll's
+    frames (FRAMES a scene) as PSNR per scene against unroll_batched_bf16's
+    (not gated: the batch size changes cuDNN's algorithm, and the model's
+    random weights turn rounding into other frames); the bf16 map unroll
+    (MAP_BATCH_GRID) with the stats summed over the ranks, whose recycled
+    slots must equal the ranks' per-scene sum, against unroll_tsdf_batched's
+    stats (reported)."""
+    import tempfile
+
+    from sgam_neurips22_tpu_torch.parallel import distributed
+    from sgam_neurips22_tpu_torch.studies import data_parallel as dp
+
+    cfg = dp.train_cfg(DP_REHEARSAL_BATCH, kmeans=True)
+    t0 = time.perf_counter()
+    one = dp.run_step(torch, np, cfg, DP_REHEARSAL_BATCH, 0)
+    gen = dp.scene_gen(copy.deepcopy(cpu_model), (2, 1), seeds_batch, False)
+    with torch.inference_mode():
+        step_ref = [x.cpu() for x in gen.scene_expansion_batched(seeds_batch)]
+    del gen
+    torch.cuda.empty_cache()
+    parent_s = time.perf_counter() - t0
+    cases = {"step_f32": ("float32", (2, 1), False, False, True),
+             "splat_bf16": ("bfloat16", (FRAMES + 1, 1), False, False, True),
+             "map_bf16": ("bfloat16", MAP_BATCH_GRID, True, False, False)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"bs": DP_REHEARSAL_BATCH, "out": tmp, "scenes": {"cases": cases, "seeds": seeds_batch}}
+        distributed.launch(dp.rank_rehearsal, 2, args=(spec,), backend="gloo")
+        ranks = [torch.load(Path(tmp) / f"rehearsal_rank{r}.pt", weights_only=False) for r in range(2)]
+    ranks_s = time.perf_counter() - t0
+    runs = ranks[0]["runs"]
+    clean = dp.hold_step(torch, runs["clean"], one)
+    faults = {f: dp.hold_step(torch, runs[f], one) for f in ("local_batchnorm", "local_d_weight")}
+    dp_rep = {"ranks": 2, "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
+              "global_batch": DP_REHEARSAL_BATCH, "vs_one_process": clean,
+              "planted_faults": {f: {"ok": g["ok"], "logs_ok": g["logs_ok"], "running_stats_ok": g["running_stats_ok"],
+                                     "update_ok": g["update"]["ok"], "d_weight": g["d_weight"],
+                                     "running_stats_max_abs_err": g["running_stats_max_abs_err"]}
+                                 for f, g in faults.items()},
+              "refreshed_codewords": [r["refreshed"] for r in ranks],
+              "bit_equal": {k: ranks[0]["checksums"][k] == ranks[1]["checksums"][k] for k in ranks[0]["checksums"]},
+              "logs_equal_across_ranks": ranks[0]["runs"]["clean"]["logs"] == ranks[1]["runs"]["clean"]["logs"],
+              "moved_from_init": ranks[0]["moved_from_init"], "parent_seconds": parent_s, "ranks_seconds": ranks_s,
+              "card": card}
+    dp_rep["ok"] = (clean["ok"] and not faults["local_batchnorm"]["ok"] and all(dp_rep["bit_equal"].values())
+                    and dp_rep["logs_equal_across_ranks"] and dp_rep["refreshed_codewords"] == [dp.REFRESHED] * 2)
+    if not dp_rep["ok"]:
+        failures.append(f"dp_two_ranks_one_card: {dp_rep}")
+    sc = [r["scenes"] for r in ranks]
+    step = sc[0]["step_f32"]
+    frames16 = sc[0]["splat_bf16"]["rgb"]
+    summed = [float(x) for x in sc[0]["map_bf16"]["stats"]]
+    per_scene = sum(s["pool_recycled"] for r in sc for s in r["map_bf16"]["scenes_pool"])
+    unsharded = keep["unroll_tsdf_batched"]
+    sc_rep = {"ranks": 2, "scenes_a_rank": SCENES // 2,
+              "step_f32": {"rgb_rel_err": rel_err(torch, step["rgb"], step_ref[0]),
+                           "depth_rel_err": rel_err(torch, step["depth"], step_ref[1])},
+              "splat_bf16": {"frames_per_scene": sc[0]["splat_bf16"]["frames_per_scene"],
+                             "psnr_db_per_scene_vs_unsharded": [
+                                 float(np.mean(psnr(torch, a[1:], b[1:])))
+                                 for a, b in zip(frames16, keep["unroll_batched_bf16_rgb"])],
+                             "seconds": [r["splat_bf16"]["seconds"] for r in sc]},
+              "map_bf16": {"frames_per_scene": sc[0]["map_bf16"]["frames_per_scene"], "summed_stats": summed,
+                           "ranks_per_scene_recycled": per_scene, "unsharded_stats": unsharded["stats"],
+                           "stats_rel_diff_vs_unsharded": [abs(a - b) / max(abs(b), 1.0)
+                                                          for a, b in zip(summed, unsharded["stats"])],
+                           "seconds": [r["map_bf16"]["seconds"] for r in sc]},
+              "finite": all(r[c]["finite"] for r in sc for c in cases), "card": card}
+    sc_rep["ok"] = (sc_rep["step_f32"]["rgb_rel_err"] <= 1e-5 and sc_rep["step_f32"]["depth_rel_err"] <= 1e-5
+                    and sc_rep["finite"] and summed[3] == per_scene and summed[0] > 0)
+    if not sc_rep["ok"]:
+        failures.append(f"scenes_sharded: {sc_rep}")
+    return dp_rep, sc_rep
+
+
+def data_parallel_phases(torch, np, failures, card, paths: dict, report: dict, seeds_batch, cpu_model,
+                         keep: dict) -> None:
+    """dp_world1, then dp_two_ranks_one_card and scenes_sharded (one
+    launch of two ranks), each emitted as it ends."""
+    t0 = time.perf_counter()
+    rep = dp_world1(torch, np, failures, card)
+    rep["seconds"] = time.perf_counter() - t0
+    paths["dp_world1"] = rep["launches_per_step"]
+    report["dp_world1"] = rep
+    emit({"phase": "dp_world1", **rep})
+    t0 = time.perf_counter()
+    dp_rep, sc_rep = dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, keep)
+    dp_rep["seconds"] = sc_rep["seconds"] = time.perf_counter() - t0
+    report.update(dp_two_ranks_one_card=dp_rep, scenes_sharded=sc_rep)
+    emit({"phase": "dp_two_ranks_one_card", **dp_rep})
+    emit({"phase": "scenes_sharded", **sc_rep})
 
 
 # ---------------------------------------------------------------- serving
@@ -2863,15 +3050,17 @@ def main(argv=None) -> int:
     # 5. the batched flythrough: SCENES scenes, each from its own seed frame
     t0 = time.perf_counter()
     seeds_batch = [seed_frames(np, rng) for _ in range(SCENES)]
-    gen_b = InfiniteSceneGeneration(gen.model, cfg, seeds_batch[0], device="cuda")
-    want_b = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 7 * FRAMES,
-              "flash_attention_dq": 0, "flash_attention_dkv": 0}
+    cfg_b = SceneGenConfig(dataset="clevr-infinite", output_dim=(BATCHED_F32_FRAMES + 1, 1), topk=1,
+                           image_resolution=(H, W))
+    gen_b = InfiniteSceneGeneration(gen.model, cfg_b, seeds_batch[0], device="cuda")
+    want_b32 = {"zbuffer_min": BATCHED_F32_FRAMES, "nearest_codeword": BATCHED_F32_FRAMES,
+                "flash_attention_fwd": 7 * BATCHED_F32_FRAMES, "flash_attention_dq": 0, "flash_attention_dkv": 0}
     (rgb_b, _), batched, report["profile_batched"] = unroll_phase(
-        torch, lambda: gen_b.scene_expansion_batched(seeds_batch), SCENES * FRAMES, counters, want_b, failures,
-        "unroll_batched", per_step=SCENES)
+        torch, lambda: gen_b.scene_expansion_batched(seeds_batch), SCENES * BATCHED_F32_FRAMES, counters, want_b32,
+        failures, "unroll_batched", per_step=SCENES)
     scenes_differ = not torch.equal(rgb_b[0, 1], rgb_b[1, 1])
-    batched.update(scenes=SCENES, frames_per_scene=FRAMES, scenes_0_1_differ_at_frame_1=scenes_differ, card=card,
-                   model_tflop_per_s=gflop * SCENES * FRAMES / batched["seconds"] / 1e3)
+    batched.update(scenes=SCENES, frames_per_scene=BATCHED_F32_FRAMES, scenes_0_1_differ_at_frame_1=scenes_differ,
+                   card=card, model_tflop_per_s=gflop * SCENES * BATCHED_F32_FRAMES / batched["seconds"] / 1e3)
     del rgb_b
     if not scenes_differ:
         failures.append("batched unroll: scenes 0 and 1 equal at frame 1")
@@ -2908,11 +3097,14 @@ def main(argv=None) -> int:
     # 8. the 8-scene unroll at bf16 (bench.py's batched_8_scenes)
     t0 = time.perf_counter()
     gen16_b = InfiniteSceneGeneration(gen16.model, cfg, seeds_batch[0], device="cuda")
+    want_b = {"zbuffer_min": FRAMES, "nearest_codeword": FRAMES, "flash_attention_fwd": 7 * FRAMES,
+              "flash_attention_dq": 0, "flash_attention_dkv": 0}
     (rgb16_b, _), batched16, report["profile_batched_bf16"] = unroll_phase(
         torch, lambda: gen16_b.scene_expansion_batched(seeds_batch), SCENES * FRAMES, counters, want_b, failures,
         "unroll_batched_bf16", per_step=SCENES)
     batched16.update(scenes=SCENES, frames_per_scene=FRAMES, card=card, f32_ms_per_frame=batched["ms_per_frame"],
                      f32_ms_per_frame_by_layer=batched["ms_per_frame_by_layer"])
+    keep = {"unroll_batched_bf16_rgb": rgb16_b.cpu()}  # for scenes_sharded
     del rgb16_b
     batched16["phase_seconds"] = time.perf_counter() - t0
     paths["unroll_batched_bf16"] = batched16["launches"]
@@ -3067,6 +3259,8 @@ def main(argv=None) -> int:
     mb_rep["phase_seconds"] = time.perf_counter() - t0
     paths["unroll_tsdf_batched"] = mb_rep["launches"]
     emit({"phase": "unroll_tsdf_batched", **mb_rep})
+    keep["unroll_tsdf_batched"] = {"stats": gen_mb.batched_volume.stats.cpu().tolist(),
+                                   "pool_recycled": mb_rep["pool_recycled"]}
     del gen_mb, pix, key
     torch.cuda.empty_cache()
 
@@ -3138,6 +3332,12 @@ def main(argv=None) -> int:
     #     CLI, generate --config on the trained run, and two Trainer steps
     #     on the card against the CPU
     trainer_phases(torch, np, counters, failures, card, paths, report)
+
+    # 20. data parallelism on this card: the conditional YAML's step in one
+    #     spawned NCCL rank against the plain step; two gloo ranks sharing
+    #     the card against the one-process step, with planted faults; the
+    #     8-scene unrolls sharded over the two ranks
+    data_parallel_phases(torch, np, failures, card, paths, report, seeds_batch, cpu_model, keep)
 
     main_path = {"zbuffer_min": "unroll", "nearest_codeword": "unroll", "flash_attention_fwd": "unroll_batched",
                  "flash_attention_dq": "train", "flash_attention_dkv": "train", "grid_accumulate": "unroll_tsdf"}

@@ -11,6 +11,13 @@ own entries) and, for a top-k manager, `metrics.json`. The file is written
 to a temporary name and renamed into place, so a step directory without
 `last.ckpt` (a save cut short) is no checkpoint. A checkpoint is
 unpickled whole on restore: load only directories you trust.
+
+Under data parallelism every rank calls `save` where the JAX package's
+cooperative orbax save has every process call it, but only rank 0 writes:
+the other ranks' managers (`writer=False`) keep the directory's state in
+memory, as read at their start and changed by the same policy, so every
+rank takes the same decisions without reading a directory rank 0 is
+writing.
 """
 from __future__ import annotations
 
@@ -68,21 +75,26 @@ class CheckpointManager:
     smallest values, 'max' the largest), given as `metrics` to `save`."""
 
     def __init__(self, directory: str, save_interval_steps: int = 10_000, max_to_keep: int = 3,
-                 monitor: Optional[str] = None, best_mode: str = "min"):
+                 monitor: Optional[str] = None, best_mode: str = "min", writer: bool = True):
         if best_mode not in ("min", "max"):
             raise ValueError(f"best_mode must be 'min' or 'max', got {best_mode!r}")
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
         self.monitor = monitor
         self.best_mode = best_mode
+        # a writer reads its directory; another rank's manager keeps {step: metric} in memory
+        self._mirror: Optional[Dict[int, Optional[float]]] = None
+        if writer:
+            os.makedirs(self.directory, exist_ok=True)
+        else:
+            self._mirror = {s: self._metric(s) for s in complete_steps(self.directory)}
 
     def step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
     def all_steps(self) -> List[int]:
-        return complete_steps(self.directory)
+        return sorted(self._mirror) if self._mirror is not None else complete_steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -100,9 +112,15 @@ class CheckpointManager:
              metrics: Optional[Dict[str, float]] = None) -> bool:
         """Write `state` (a dict of tensors and plain values, as
         `torch.save` takes it) as step `step` unless the policy says no;
-        then drop the checkpoints the policy no longer keeps."""
+        then drop the checkpoints the policy no longer keeps. A manager
+        that does not write records the save without `state`."""
         if not force and not self.should_save(step):
             return False
+        if self._mirror is not None:
+            value = (metrics or {}).get(self.monitor) if self.monitor else None
+            self._mirror[step] = None if value is None else float(value)
+            self._retain()
+            return True
         with critical_section():
             d = self.step_dir(step)
             os.makedirs(d, exist_ok=True)
@@ -116,6 +134,8 @@ class CheckpointManager:
         return True
 
     def _metric(self, step: int) -> Optional[float]:
+        if self._mirror is not None:
+            return self._mirror[step]
         try:
             with open(os.path.join(self.step_dir(step), METRICS_FILE)) as f:
                 return float(json.load(f)[self.monitor])
@@ -132,7 +152,10 @@ class CheckpointManager:
             keep = [s for _, s in scored[: self.max_to_keep]]
         for s in steps:
             if s not in keep:
-                shutil.rmtree(self.step_dir(s), ignore_errors=True)
+                if self._mirror is not None:
+                    del self._mirror[s]
+                else:
+                    shutil.rmtree(self.step_dir(s), ignore_errors=True)
 
     def restore(self, step: Optional[int] = None, map_location: Any = "cpu") -> Dict[str, Any]:
         """The saved dict of `step` (the latest by default)."""

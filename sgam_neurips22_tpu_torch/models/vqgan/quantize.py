@@ -54,9 +54,25 @@ def resize_mask_nearest(mask: torch.Tensor, h_out: int, w_out: int) -> torch.Ten
     return mask[:, ys][:, :, xs]
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+class RowShard(NamedTuple):
+    """A generator that draws one rank's rows of a sharded batch: the
+    draw of all `count` ranks' rows at once, of which this rank keeps
+    block `index`. A scene-sharded unroll draws each scene's noise as the
+    unsharded unroll does (JAX's mesh draws one global array from one key)."""
+
+    generator: torch.Generator
+    index: int
+    count: int
+
+
+def gumbel_noise(shape, generator: torch.Generator | RowShard, device) -> torch.Tensor:
     """Standard Gumbel noise -log(-log(U)) in f32, U uniform on [tiny, 1)
-    from `generator`, as jax.random.gumbel draws it from its key."""
+    from `generator`, as jax.random.gumbel draws it from its key; from a
+    RowShard, its rows of the whole batch's draw."""
+    if isinstance(generator, RowShard):
+        rows = shape[0]
+        full = gumbel_noise((rows * generator.count, *shape[1:]), generator.generator, device)
+        return full[generator.index * rows: (generator.index + 1) * rows]
     u = torch.rand(shape, generator=generator, device=device).clamp_min_(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 

@@ -18,7 +18,10 @@ plan across scenes and runs the model at batch S with flash attention.
 `scene_expansion(fused=False)` steps frame by frame instead, planning each
 step when it comes and writing each frame out as it is made; `output_dir`
 then receives the reference's file layout (`export_frames`,
-`export_point_clouds`).
+`export_point_clouds`). `scene_expansion_batched(..., mesh=)` shards the
+scenes over data-parallel ranks (`parallel.mesh`): each rank unrolls its
+block of scenes with its replica of the model and no collective, and the
+buffers are gathered at the end.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ from sgam_neurips22_tpu_torch.mapping.tsdf import (
 )
 from sgam_neurips22_tpu_torch.models.conditioning import get_x
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
+from sgam_neurips22_tpu_torch.models.vqgan.quantize import RowShard
+from sgam_neurips22_tpu_torch.parallel import distributed
 from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
 from sgam_neurips22_tpu_torch.pipeline.selection import select_sources
 from sgam_neurips22_tpu_torch.pipeline.png import write_png
@@ -527,7 +532,7 @@ class InfiniteSceneGeneration:
                           f"{CLAIM_MAX_FRAMES}; pool dedup degrades beyond that: start a fresh volume")
 
     @torch.inference_mode()
-    def scene_expansion_batched(self, seeds_batch: list, generator: Optional[torch.Generator] = None):
+    def scene_expansion_batched(self, seeds_batch: list, generator: Optional[torch.Generator] = None, mesh=None):
         """Unroll S scenes at once: one plan (this generator's trajectory
         and visited state, as `build_plan` gives it) serves every scene, and
         each step runs the conditioning and the model at batch S. Under map
@@ -545,9 +550,38 @@ class InfiniteSceneGeneration:
             every scene must seed the same coords.
           generator: on the device, draws the samples at topk > 1; topk=1
             draws nothing.
+          mesh: a data mesh of several ranks (`parallel.mesh.make_mesh`),
+            every rank calling with the same arguments: the scene axis is
+            sharded over it, S must divide by its size, and each rank
+            unrolls its contiguous block of S / n scenes with its replica of
+            the model (rank 0's weights, broadcast first), with no
+            collective until both buffers are gathered at the end. Map
+            re-query gives each rank its own batched volume
+            (`batched_volume`: its scenes), whose `stats` are summed over
+            the ranks, the batch-global telemetry of JAX's volume. At topk > 1
+            each rank draws the whole batch's noise and keeps its scenes'
+            rows, so every scene's draws are the unsharded run's. A rank
+            runs the model at its own batch, S / n: with one scene a rank
+            that is batch 1, whose attention takes the plain path where the
+            unsharded batch takes flash attention (`models.vqgan.nn.AttnBlock`),
+            so its frames round differently; two or more a rank take the
+            unsharded route.
         Returns:
           (rgb [S, G, H, W, 3], depth [S, G, H, W]) on the device.
         """
+        self._check_seeds(seeds_batch)
+        if mesh is not None and mesh.group is not None:
+            s, n = len(seeds_batch), mesh.size
+            if s % n:
+                raise ValueError(f"{s} scenes do not shard over {n} devices")
+            per = s // n
+            distributed.replicate_global(self.model, mesh)
+            generator = self._generator(generator)
+            rgb, depth = self.scene_expansion_batched(seeds_batch[mesh.rank * per: (mesh.rank + 1) * per],
+                                                      None if generator is None else RowShard(generator, mesh.rank, n))
+            if self.cfg.use_rgbd_integration:  # the batch's telemetry, as JAX's one volume keeps it
+                distributed.all_reduce_(self.batched_volume.stats, group=mesh.group)
+            return distributed.all_gather_rows(rgb, mesh.group), distributed.all_gather_rows(depth, mesh.group)
         rgb_flat, depth_flat = self.batched_buffers(seeds_batch)
         h, w = self.cfg.image_resolution
         s, g = len(seeds_batch), self.grid.size
@@ -575,15 +609,19 @@ class InfiniteSceneGeneration:
                       self._w2c(idx))
         return volume
 
-    def batched_buffers(self, seeds_batch: list):
-        """The flat (rgb [S*G, H, W, 3], depth [S*G, H, W]) device buffers of
-        S scenes, zero but for each scene's seed frames at s*G + index.
-        Raises ValueError unless every scene seeds the same coords."""
+    @staticmethod
+    def _check_seeds(seeds_batch: list) -> None:
         if not seeds_batch:
             raise ValueError("seeds_batch holds no scene")
         coords0 = sorted(c for c, _, _ in seeds_batch[0])
         if any(sorted(c for c, _, _ in seeds) != coords0 for seeds in seeds_batch[1:]):
             raise ValueError("all scenes must seed the same grid coords")
+
+    def batched_buffers(self, seeds_batch: list):
+        """The flat (rgb [S*G, H, W, 3], depth [S*G, H, W]) device buffers of
+        S scenes, zero but for each scene's seed frames at s*G + index.
+        Raises ValueError unless every scene seeds the same coords."""
+        self._check_seeds(seeds_batch)
         h, w = self.cfg.image_resolution
         s, g = len(seeds_batch), self.grid.size
         rgb_flat = torch.zeros((s * g, h, w, 3), dtype=torch.float32, device=self.device)

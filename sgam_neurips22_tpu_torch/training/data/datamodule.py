@@ -15,6 +15,13 @@ the epoch's and handed to the thread or process that decodes it, so the
 batches equal the JAX loader's bit for bit at the same seed, whatever the
 workers' order. `device_put` moves each batch to the device:
 `to_device` copies it from pinned host memory without blocking.
+
+With `process_count` > 1 (data-parallel ranks, `parallel.distributed`)
+`batch_size` is the global batch: every rank walks the same epoch-seeded
+order, spawns the same per-position streams of the whole batch, and
+decodes only its `process_index`-th slice of it, as the JAX loader does
+(the DistributedSampler discipline), on threads, worker processes and the
+packed paths alike.
 """
 from __future__ import annotations
 
@@ -48,7 +55,9 @@ class Loader:
     """Shuffling batcher with background prefetch and parallel example
     decode, on `workers` threads or, with `processes`, `workers` spawned
     processes (each receives the dataset once, so it must pickle); the last
-    partial batch is dropped (the reference's drop_last=True)."""
+    partial batch is dropped (the reference's drop_last=True). With
+    `process_count` > 1 it yields this rank's rows of each global batch of
+    `batch_size`, which must divide by the ranks."""
 
     def __init__(
         self,
@@ -60,7 +69,11 @@ class Loader:
         workers: int = 8,
         device_put: Optional[Callable[[Dict[str, np.ndarray]], Any]] = None,
         processes: bool = False,
+        process_count: int = 1,
+        process_index: int = 0,
     ):
+        if batch_size % process_count:
+            raise ValueError(f"batch_size {batch_size} not divisible by {process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -69,6 +82,8 @@ class Loader:
         self.workers = max(1, workers)
         self.device_put = device_put
         self.processes = processes
+        self.process_count = process_count
+        self.process_index = process_index
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -80,11 +95,20 @@ class Loader:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         return idx
 
+    def _local(self, n: int) -> slice:
+        """This rank's rows of a global batch of n (all of it in one process)."""
+        per = n // self.process_count
+        return slice(self.process_index * per, (self.process_index + 1) * per)
+
     def _assemble(self, idxs, rng: np.random.Generator, pool: Optional[Executor]) -> Dict[str, np.ndarray]:
+        sl = self._local(len(idxs))
         if hasattr(self.dataset, "assemble_batch"):
             # a packed shard: one native call builds the whole batch
-            return self.dataset.assemble_batch(idxs)
-        rngs = rng.spawn(len(idxs))
+            return self.dataset.assemble_batch(idxs[sl])
+        # each global position's stream, spawned before slicing: a rank
+        # decodes example i with the stream one process would
+        rngs = rng.spawn(len(idxs))[sl]
+        idxs = idxs[sl]
         if pool is None:
             examples = [get_example(self.dataset, i, r) for i, r in zip(idxs, rngs)]
         elif self.processes:
@@ -185,12 +209,15 @@ class DataModule:
         seed: int = 0,
         device_put=None,
         packed: str | bool = "auto",
+        process_count: int = 1,
+        process_index: int = 0,
         **_: Any,
     ):
         self.batch_size = batch_size
         self.seed = seed
         self.device_put = device_put
         self.num_workers = int(num_workers)
+        self.process_count, self.process_index = process_count, process_index
         if phase == "conditional_generation":
             cls = PAIR_DATASETS[dataset]
             self.train_ds = cls("train", dataset_dir, n_src, image_resolution,
@@ -251,7 +278,8 @@ class DataModule:
         # epoch generator drives only the training split's source sampling
         processes = self.num_workers > 0 and getattr(ds, "frame_store", None) is None
         return Loader(ds, self.batch_size, shuffle=shuffle, seed=self.seed if shuffle else 0,
-                      device_put=self.device_put, workers=self.num_workers if processes else 8, processes=processes)
+                      device_put=self.device_put, workers=self.num_workers if processes else 8, processes=processes,
+                      process_count=self.process_count, process_index=self.process_index)
 
     def train_loader(self) -> Loader:
         return self._loader(self.train_ds, shuffle=True)

@@ -156,8 +156,12 @@ class PairDatasetBase:
                     self.rotation_variants, self.require_valid, self.drop_isolated,
                 )
                 if use_cache:
-                    with open(cache, "wb") as f:
+                    # written whole, then renamed: data-parallel ranks build their
+                    # datasets at once and may read a cache another is writing
+                    tmp = cache.with_name(f"{cache.name}.{os.getpid()}.tmp")
+                    with open(tmp, "wb") as f:
                         pickle.dump(g, f)
+                    os.replace(tmp, cache)
             self.graphs.append(g)
             self.cumsum.append(len(g) + self.cumsum[-1])
 

@@ -11,7 +11,12 @@ BatchNorm uses batch statistics in train mode and running statistics in
 eval mode, as the JAX `_batch_norm`; the running statistics are buffers
 updated in place by a train-mode call. `apply_keeping_stats` runs a
 train-mode call that leaves them as they were, which is what the JAX
-generator loss does when it drops the new state.
+generator loss does when it drops the new state. Under a process group
+the batch is the global one, as under JAX's mesh: the sums, then the
+squared deviations, are summed over the ranks by a differentiable
+all-reduce, so the statistics, the running variance's count and the
+backward pass are global; every rank must then call the discriminator in
+the same order.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+
+from sgam_neurips22_tpu_torch.parallel import distributed
 
 
 class DiscConfig(NamedTuple):
@@ -40,6 +47,34 @@ class BatchNorm(nn.BatchNorm2d):
     def _load_from_state_dict(self, *args, **kwargs):
         # skip BatchNorm's hook, which adds the count to an unversioned state_dict
         nn.Module._load_from_state_dict(self, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = stats_group() if self.training else None
+        return super().forward(x) if group is None else self._global(x, group)
+
+    def _global(self, x: torch.Tensor, group) -> torch.Tensor:
+        """JAX's `_batch_norm` over the ranks' batches together: mean and
+        biased variance of the global batch, the running variance unbiased
+        by the global count n."""
+        c = x.shape[1]
+        local = torch.cat([x.sum((0, 2, 3)), x.new_full((1,), x.numel() // c)])
+        summed = distributed.all_reduce_sum(local, group)
+        n = summed[c].detach()
+        mean = summed[:c] / n
+        centered = x - mean[None, :, None, None]
+        var = distributed.all_reduce_sum((centered * centered).sum((0, 2, 3)), group) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * n / (n - 1).clamp_min(1))
+        return centered * torch.rsqrt(var + self.eps)[None, :, None, None] * self.weight[None, :, None, None] \
+            + self.bias[None, :, None, None]
+
+
+def stats_group():
+    """The group BatchNorm's train-mode statistics are summed over: the
+    data-parallel group, None in a plain process (local statistics)."""
+    return distributed.data_group()
 
 
 class NLayerDiscriminator(nn.Module):

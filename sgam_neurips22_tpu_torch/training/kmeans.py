@@ -7,12 +7,21 @@ the device; the refresh runs between steps, at most every `frequency`
 steps. The random init is apart from Lloyd's iterations (`kmeans_init`,
 from an explicit CPU `torch.Generator`; `lloyd`), so a test can start the
 iterations from JAX's own init rows.
+
+Under a process group every rank holds the same buffer and timeouts (the
+step broadcasts the rows it books), and the refresh must give every rank
+the same codebook, as JAX's does by running one deterministic computation
+everywhere. Lloyd's centroid sums (`index_add_`) add in the order CUDA's
+threads arrive, so two ranks could part by an ULP: the refreshed rows are
+rank 0's, broadcast to the others.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from sgam_neurips22_tpu_torch.parallel import distributed
 
 
 def kmeans_init(data: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
@@ -95,13 +104,14 @@ def refresh_codebook(codebook: torch.Tensor, state: KMeansState, word_timeout: i
     """Re-cluster the buffered features into as many centroids as there are
     inactive codewords, write them over those rows of `codebook` (in
     place) and give them their timeout back. Returns the number of rows
-    refreshed."""
+    refreshed. Under a process group the rows are rank 0's on every rank."""
     inactive = torch.nonzero(state.timeout <= 0)[:, 0]
     k = int(inactive.shape[0])
     if k == 0:
         return 0
     feats = state.buffer.reshape(-1, state.buffer.shape[-1])
-    centroids = kmeans(feats, k, generator)
+    centroids = kmeans(feats, k, generator).contiguous()
+    distributed.broadcast_tensors_([centroids], group=distributed.data_group())
     with torch.no_grad():
         codebook[inactive] = centroids.to(codebook.dtype)
     state.timeout[inactive] = word_timeout

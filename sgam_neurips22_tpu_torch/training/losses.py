@@ -14,7 +14,11 @@ Two rules of the JAX functions that PyTorch does not give for free:
   `discriminator.apply_keeping_stats`.
 - The adaptive weight takes gradients w.r.t. conv_out's kernel alone with
   the decoder features held fixed, which is what `torch.autograd.grad` of
-  each loss w.r.t. that kernel computes on the step's own graph.
+  each loss w.r.t. that kernel computes on the step's own graph. Under a
+  process group both gradients are of the global-mean loss, as under
+  JAX's mesh: each rank's gradient of its local mean is averaged over the
+  ranks before the norms (`adaptive_gradients`), so every rank takes the
+  same weight.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from sgam_neurips22_tpu_torch.training.discriminator import (
     NLayerDiscriminator,
     apply_keeping_stats,
 )
+from sgam_neurips22_tpu_torch.parallel import distributed
 from sgam_neurips22_tpu_torch.training.lpips import LPIPS
 
 
@@ -88,6 +93,14 @@ def _nll(x_dst, xrec, lpips: Optional[LPIPS], cfg: LossConfig):
     return nll, nll, torch.zeros((), dtype=rec.dtype, device=rec.device)
 
 
+def adaptive_gradients(nll: torch.Tensor, g_loss: torch.Tensor, w: torch.Tensor):
+    """(grad nll, grad g_loss) w.r.t. w, each the mean over the
+    data-parallel ranks (the global batch's gradient)."""
+    nll_grad, = torch.autograd.grad(nll, w, retain_graph=True)
+    g_grad, = torch.autograd.grad(g_loss, w, retain_graph=True)
+    return distributed.all_reduce_mean_([nll_grad, g_grad], distributed.data_group())
+
+
 def generator_loss(
     x_dst: torch.Tensor,
     h_pre: torch.Tensor,
@@ -117,8 +130,7 @@ def generator_loss(
     nll, rec_log, p_log = _nll(x_dst, xrec, lpips, cfg)
     if cfg.use_discriminative_loss:
         g_loss = -torch.mean(apply_keeping_stats(disc, xrec))
-        nll_grad, = torch.autograd.grad(nll, w, retain_graph=True)
-        g_grad, = torch.autograd.grad(g_loss, w, retain_graph=True)
+        nll_grad, g_grad = adaptive_gradients(nll, g_loss, w)
         d_weight = torch.linalg.vector_norm(nll_grad) / (torch.linalg.vector_norm(g_grad) + 1e-4)
         d_weight = (torch.clamp(d_weight, 0.0, 1e4) * cfg.disc_weight).detach()
     else:

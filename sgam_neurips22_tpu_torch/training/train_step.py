@@ -1,5 +1,6 @@
 """Two-optimizer GAN training step — port of
-`sgam_neurips22_tpu/training/train_step.py` (one device, f32).
+`sgam_neurips22_tpu/training/train_step.py`, on one device or as one rank
+of a data-parallel process group.
 
 One step: (0) an autoencoder update on L1 + LPIPS + adaptive-weight GAN +
 codebook loss, then (1) a discriminator update on the hinge loss of the
@@ -34,6 +35,17 @@ Options of the JAX `TrainConfig`, each as optax runs it:
   (lr_start, 0 by default);
 - the pre-VQ passthrough (`use_vq` False): the latents skip quantisation,
   with a zero codebook loss and all-zero indices.
+
+Under a process group (`parallel.distributed.data_group`) the batch is the
+rank's rows of the global batch and the step is the JAX step on the
+global batch: the discriminator's BatchNorm and the adaptive weight are
+global (`discriminator`, `losses`); both optimizers' gradients and the
+logs are averaged over the ranks in one bucketed all-reduce before the
+updates (torch DDP would not see them: the step takes `torch.autograd.grad`,
+which runs none of DDP's hooks), each microbatch's before it is
+accumulated, as optax.MultiSteps accumulates global gradients; and the
+k-means bookkeeping takes element 0 of the global batch, rank 0's first
+row, broadcast to every rank. Every rank then holds the same bits.
 """
 from __future__ import annotations
 
@@ -49,6 +61,7 @@ from sgam_neurips22_tpu_torch.core.state_dict import load_into, random_state_dic
 from sgam_neurips22_tpu_torch.models.conditioning import get_x
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel, VQModelConfig
 from sgam_neurips22_tpu_torch.models.vqgan.quantize import quantize
+from sgam_neurips22_tpu_torch.parallel import distributed
 from sgam_neurips22_tpu_torch.training.discriminator import NLayerDiscriminator, init_discriminator
 from sgam_neurips22_tpu_torch.training.kmeans import KMeansState, init_kmeans_state, kmeans_bookkeeping
 from sgam_neurips22_tpu_torch.training.losses import LossConfig, discriminator_loss, generator_loss
@@ -277,6 +290,7 @@ def train_step(
     update) on a batch of tensors on the state's device. Returns the state
     (updated in place) and the logs, 0-d tensors on that device."""
     step = state.step
+    group = distributed.data_group()
     x, x_dst, mask = model_inputs(batch, cfg)
     acc_ae, acc_disc = state.accumulators or (None, None)
 
@@ -286,21 +300,27 @@ def train_step(
     ae_loss, xrec, ae_log = _generator_loss(state.model, state.disc, lpips, x_dst, h_pre, qloss, step, cfg)
     grads = torch.autograd.grad(ae_loss, trainable, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainable, grads)]
-    _update(state.opt_ae, trainable, grads, acc_ae, step, cfg)
 
     # optimizer 1: the discriminator, at its weights before this step
     d_loss, d_log = discriminator_loss(x_dst, xrec, step, state.disc, cfg.loss)
     disc_params = list(state.disc.parameters())
-    _update(state.opt_disc, disc_params, torch.autograd.grad(d_loss, disc_params), acc_disc, step, cfg)
+    d_grads = list(torch.autograd.grad(d_loss, disc_params))
 
-    state.step += 1
-    if state.kmeans is not None:
-        kmeans_bookkeeping(state.kmeans, indices[0], pre_quant[0].detach(),
-                           cfg.online_kmeans.online_kmeans_word_timeout)
     logs = {"aeloss": ae_loss.detach(), "discloss": d_loss.detach()}
     logs.update({f"train/{k}": v for k, v in ae_log.items()})
     logs.update({f"train/{k}": v for k, v in d_log.items()})
+    if group is not None:
+        values = torch.stack([v.float() for v in logs.values()])
+        distributed.all_reduce_mean_([*grads, *d_grads, values], group)
+        logs = dict(zip(logs, values.unbind()))
+    _update(state.opt_ae, trainable, grads, acc_ae, step, cfg)
+    _update(state.opt_disc, disc_params, d_grads, acc_disc, step, cfg)
+
+    state.step += 1
     if state.kmeans is not None:
+        row0 = [indices[0].contiguous(), pre_quant[0].detach().contiguous()]
+        distributed.broadcast_tensors_(row0, group=group)  # element 0 of the global batch: rank 0's
+        kmeans_bookkeeping(state.kmeans, *row0, cfg.online_kmeans.online_kmeans_word_timeout)
         logs["train/codebook_active_percentage"] = torch.mean((state.kmeans.timeout > 0).float())
     return state, logs
 

@@ -4,11 +4,23 @@ data, LR scaling accumulate x batch x base, interval and top-k checkpoints,
 an emergency checkpoint on SIGUSR1 / SIGTERM / a crash between steps, image grids and
 metric logs, validation each epoch, and the online k-means refresh.
 
-One device: a data-parallel run (torch DDP in place of the JAX package's
-`parallel/`) is not ported yet. The train loop reads nothing from the
-device on a step that logs nothing (metrics every 50 steps, images at
-`ImageLogger`'s steps); the k-means trigger reads its inactive count only
-on steps that pass its frequency check.
+One device, or one rank of a data-parallel process group
+(`parallel.distributed`; the train CLI's --n_devices launches the ranks):
+the trainer's mesh then spans every rank, `batch_size` is the global batch
+(each rank decodes its slice), the state starts as rank 0's, and the step
+is global (`training.train_step`). Rank 0 alone writes the config
+snapshot, metrics, images, checkpoints and best_vals.json; the others
+record each save and wait at a barrier where the JAX package's
+cooperative save would. Validation sums the codebook histogram and
+averages the logged means over the ranks, so every rank takes the same
+best-checkpoint decision. The emergency save of a multi-rank run is rank
+0's alone, with no collective (its peers may be gone): `emergency_state.ckpt`
+in the run directory, which `resume` prefers when it is newer.
+
+The train loop reads nothing from the device on a step that logs nothing
+(metrics every 50 steps, images at `ImageLogger`'s steps); the k-means
+trigger reads its inactive count only on steps that pass its frequency
+check.
 """
 from __future__ import annotations
 
@@ -24,11 +36,13 @@ import torch
 
 from sgam_neurips22_tpu_torch.core.checkpoint import CheckpointManager, critical_section, install_signal_checkpoint
 from sgam_neurips22_tpu_torch.core.config import ConfigDict, save_yaml
-from sgam_neurips22_tpu_torch.core.device import resolve_device
 from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params, load_into
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModelConfig
+from sgam_neurips22_tpu_torch.parallel import distributed
+from sgam_neurips22_tpu_torch.parallel.distributed import barrier, is_primary, replicate_global, shard_local_batch
+from sgam_neurips22_tpu_torch.parallel.mesh import make_mesh
 from sgam_neurips22_tpu_torch.serving import load_inference_params
-from sgam_neurips22_tpu_torch.training.data.datamodule import DataModule, to_device
+from sgam_neurips22_tpu_torch.training.data.datamodule import DataModule
 from sgam_neurips22_tpu_torch.training.kmeans import refresh_codebook, should_refresh
 from sgam_neurips22_tpu_torch.training.losses import LossConfig
 from sgam_neurips22_tpu_torch.training.lpips import LPIPS, random_lpips
@@ -45,6 +59,7 @@ from sgam_neurips22_tpu_torch.utils.logging import ImageLogger, MetricLogger
 
 TOP_K = 3  # best checkpoints kept by the monitored metric
 LOG_EVERY = 50  # steps between metric logs
+EMERGENCY_FILE = "emergency_state.ckpt"  # a multi-rank run's emergency checkpoint, rank 0's
 
 
 def monitor_improves(val: float, kept: list, mode: str, top_k: int = TOP_K) -> bool:
@@ -90,21 +105,26 @@ class Trainer:
         install_signals: bool = True,
         device: str | torch.device = "cuda",
     ):
-        if n_devices not in (None, 1):
-            raise NotImplementedError(f"n_devices={n_devices}: the port trains on one device; data-parallel "
-                                      "training (torch DDP) is not ported yet (ROADMAP.md, queue item 1.6)")
         self.cfg = cfg
         self.logdir = logdir
         self.max_steps = max_steps
-        self.device = resolve_device(device)
-        os.makedirs(logdir, exist_ok=True)
-        save_yaml(cfg, os.path.join(logdir, "config.yaml"))
-
+        self.mesh = make_mesh(n_devices, device)
+        self.device = self.mesh.device
+        self._primary = is_primary()
         bs = int(cfg.data.params.batch_size)
+        if bs % self.mesh.size:
+            # a process group cannot shrink (the launcher picks the rank count)
+            raise ValueError(f"batch_size {bs} must be divisible by the {self.mesh.size}-rank data mesh")
+        if self._primary:
+            os.makedirs(logdir, exist_ok=True)
+            save_yaml(cfg, os.path.join(logdir, "config.yaml"))
+
         base = train_config_from_yaml(cfg)
+        # bs is the global batch, so the rank count is already inside it
         lr = accumulate_grad_batches * bs * base.learning_rate
         self.train_cfg = replace(base, learning_rate=lr, accumulate_grad_batches=accumulate_grad_batches)
-        print(f"lr = {lr:.3e} = {accumulate_grad_batches} (accum) x {bs} (batch) x {base.learning_rate:.3e}")
+        print(f"lr = {lr:.3e} = {accumulate_grad_batches} (accum) x {bs} (global batch = {self.mesh.size} ranks x "
+              f"{bs // self.mesh.size}) x {base.learning_rate:.3e}")
 
         self.state = create_train_state(self.train_cfg, seed=seed, device=self.device)
         model = self.state.model
@@ -132,18 +152,22 @@ class Trainer:
             self.lpips = random_lpips(1)
             if self.train_cfg.loss.perceptual_weight > 0:
                 print("WARNING: using a randomly initialized LPIPS backbone")
-        self.lpips.to(self.device)
+        for module in (model, self.state.disc, self.lpips):
+            replicate_global(module, self.mesh)  # rank 0's values on every rank
 
-        self.data = DataModule(device_put=lambda b: to_device(b, self.device), **dict(cfg.data.params))
-        self.metrics = MetricLogger(logdir, use_wandb=use_wandb)
-        self.images = ImageLogger(logdir, wandb_run=self.metrics.wandb)
-        self.ckpt = CheckpointManager(os.path.join(logdir, "checkpoints"), save_interval_steps=10_000)
+        self.data = DataModule(device_put=lambda b: shard_local_batch(b, self.mesh), process_count=self.mesh.size,
+                               process_index=self.mesh.rank, **dict(cfg.data.params))
+        self.metrics = MetricLogger(logdir, use_wandb=use_wandb) if self._primary else None
+        self.images = ImageLogger(logdir, wandb_run=self.metrics.wandb if self.metrics else None)
+        self.ckpt = CheckpointManager(os.path.join(logdir, "checkpoints"), save_interval_steps=10_000,
+                                      writer=self._primary)
         self.monitor = cfg.model.params.get("monitor", "val/rec_loss")
         self.monitor_mode = str(cfg.model.params.get("monitor_mode", "min"))
         if self.monitor_mode not in ("min", "max"):
             raise ValueError(f"monitor_mode must be 'min' or 'max', got {self.monitor_mode!r}")
         self.best_ckpt = CheckpointManager(os.path.join(logdir, "checkpoints_best"), save_interval_steps=1,
-                                           max_to_keep=TOP_K, monitor=self.monitor, best_mode=self.monitor_mode)
+                                           max_to_keep=TOP_K, monitor=self.monitor, best_mode=self.monitor_mode,
+                                           writer=self._primary)
         # the top-k gate's values persist beside the checkpoints, so a
         # resumed run does not save again for validations that cannot enter
         self._best_vals_path = os.path.join(logdir, "best_vals.json")
@@ -159,6 +183,7 @@ class Trainer:
         self._kmeans_gen = torch.Generator().manual_seed(seed + 7)
         self.refreshes: list = []  # one record per k-means refresh
         self._in_step = False  # set while a refresh and train step change the state
+        barrier()  # every rank has read the run directory before rank 0 writes to it
 
     # ------------------------------------------------------------------
     def checkpoint_dict(self) -> Dict[str, Any]:
@@ -204,13 +229,23 @@ class Trainer:
         """Never raises: it runs from signal handlers and crash paths. A step
         cut short by an exception leaves the state torn (the step updates it
         in place: the autoencoder's Adam may have moved while the step count
-        has not), so then nothing is written and the latest checkpoint stands."""
+        has not), so then nothing is written and the latest checkpoint stands.
+        With several ranks, rank 0 alone writes EMERGENCY_FILE, with no
+        collective: its peers may already be gone."""
         if self._in_step:
             print(f"no emergency checkpoint: step {self.state.step} did not end, the latest checkpoint "
                   f"is step {self.ckpt.latest_step()}", flush=True)
             return
         try:
             step = self.state.step
+            if self.mesh.size > 1:
+                if self._primary:
+                    path = os.path.join(self.logdir, EMERGENCY_FILE)
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    torch.save(self.checkpoint_dict(), tmp)
+                    os.replace(tmp, path)
+                    print(f"emergency checkpoint at step {step}: {path}", flush=True)
+                return
             if self.ckpt.latest_step() != step:
                 self.ckpt.save(step, self.checkpoint_dict(), force=True)
                 print(f"emergency checkpoint at step {step}", flush=True)
@@ -218,7 +253,16 @@ class Trainer:
             print(f"emergency checkpoint failed: {e}", flush=True)
 
     def resume(self) -> None:
+        """Continue from the latest checkpoint, or from a multi-rank run's
+        emergency checkpoint where that is newer; on every rank."""
         latest = self.ckpt.latest_step()
+        path = os.path.join(self.logdir, EMERGENCY_FILE)
+        if os.path.isfile(path):
+            ck = torch.load(path, map_location=self.device, weights_only=False)
+            if latest is None or int(ck["global_step"]) > latest:
+                self.load_checkpoint_dict(ck)
+                print(f"resumed from the emergency checkpoint at step {self.state.step}")
+                return
         if latest is not None:
             self.load_checkpoint_dict(self.ckpt.restore(latest, map_location=self.device))
             print(f"resumed from step {latest}")
@@ -256,14 +300,14 @@ class Trainer:
                         self.state, logs = train_step(self.state, batch, self.lpips, self._step_cfg(step))
                         self._in_step = False
                     host_step += 1
-                    if step % LOG_EVERY == 0:
+                    if step % LOG_EVERY == 0 and self.metrics:
                         logs["lr"] = self.train_cfg.lr_at(step)
                         self.metrics.log(logs, step)
-                    if self.images.should_log(step):
-                        self._log_images(batch, "train", step)
+                    if self._primary and self.images.should_log(step):
+                        self._log_images(batch, "train", step)  # rank 0's rows
                     # labelled with the post-step counter, as the state's step
                     if self.ckpt.should_save(host_step):
-                        self.ckpt.save(host_step, self.checkpoint_dict())
+                        self._save(self.ckpt, host_step)
                     if self.max_steps and step >= self.max_steps:
                         self.validate()
                         self.test()
@@ -276,12 +320,18 @@ class Trainer:
             self._emergency_save()
             raise
 
+    def _save(self, manager: CheckpointManager, step: int, force: bool = False, metrics=None) -> None:
+        """A save on every rank: rank 0 writes, the others record it, and
+        all meet at a barrier."""
+        manager.save(step, self.checkpoint_dict() if self._primary else None, force=force, metrics=metrics)
+        barrier()
+
     def _final_save(self) -> None:
         """The state at the end of fit, whatever the interval, so that a
         resume continues from where training stopped."""
         step = self.state.step
         if self.ckpt.latest_step() != step:
-            self.ckpt.save(step, self.checkpoint_dict(), force=True)
+            self._save(self.ckpt, step, force=True)
 
     def test(self) -> None:
         """The test split (the validation data, as the reference's), with
@@ -289,6 +339,9 @@ class Trainer:
         self.validate(loader=self.data.test_loader)
 
     def validate(self, loader=None) -> None:
+        """Mean val/* logs over the loader's batches and the codebook usage,
+        both over every rank's rows; a best checkpoint when the monitored
+        value enters the top k."""
         step = self.state.step
         n_embed = self.train_cfg.model.n_embed
         usage = torch.zeros(n_embed, dtype=torch.int64, device=self.device)
@@ -303,19 +356,27 @@ class Trainer:
         if not n:
             return
         out = {k: float(np.mean(v)) for k, v in agg.items()}
+        group = self.mesh.group
+        if group is not None:
+            means = torch.tensor(list(out.values()), dtype=torch.float64, device=self.device)
+            distributed.all_reduce_mean_([means], group)
+            distributed.all_reduce_(usage, group=group)
+            out = dict(zip(out, means.tolist()))
         out["val/codebook_active_percentage"] = float((usage > 0).double().mean())
-        self.metrics.log(out, step)
-        print({k: round(v, 5) for k, v in out.items()})
+        if self.metrics:
+            self.metrics.log(out, step)
+            print({k: round(v, 5) for k, v in out.items()})
         if self.monitor in out and self.best_ckpt.latest_step() != step:
             val = out[self.monitor]
             if monitor_improves(val, self._best_vals, self.monitor_mode):
-                self.best_ckpt.save(step, self.checkpoint_dict(), metrics=out, force=True)
+                self._save(self.best_ckpt, step, force=True, metrics=out)
                 self._best_vals = sorted([*self._best_vals, val], reverse=self.monitor_mode == "max")[:TOP_K]
-                try:
-                    with open(self._best_vals_path, "w") as f:
-                        json.dump(self._best_vals, f)
-                except OSError:
-                    pass
+                if self._primary:
+                    try:
+                        with open(self._best_vals_path, "w") as f:
+                            json.dump(self._best_vals, f)
+                    except OSError:
+                        pass
 
     def _log_images(self, batch: Dict[str, torch.Tensor], split: str, step: int) -> None:
         model = self.state.model
@@ -333,4 +394,5 @@ class Trainer:
         })
 
     def close(self) -> None:
-        self.metrics.close()
+        if self.metrics:
+            self.metrics.close()

@@ -414,7 +414,10 @@ def test_top_k_by_monitor_mode(tmp_path, mode):
 
 def test_trainer_best_checkpoints_and_options(tmp_path):
     """monitor_mode threads to the best checkpoints and best_vals.json; LR
-    = accumulate x batch x base; n_devices > 1 and an unknown mode raise."""
+    = accumulate x batch x base; an unknown mode raises, and so does
+    n_devices > 1 in a plain process (each device is a rank of its own,
+    started by `parallel.distributed.launch` or the CLI's --n_devices:
+    tests/test_torch_port_parallel*.py)."""
     ddir = _dataset(tmp_path)
     cfg = _cfg(ddir, monitor="val/rgb_l1", monitor_mode="max")
     tr = _trainer(cfg, tmp_path / "run", accumulate_grad_batches=2)
@@ -426,7 +429,7 @@ def test_trainer_best_checkpoints_and_options(tmp_path):
     assert tr.best_ckpt.all_steps() == [0, 1]
     assert json.load(open(tmp_path / "run" / "best_vals.json")) == sorted(tr._best_vals, reverse=True)
     tr.close()
-    with pytest.raises(NotImplementedError, match="DDP"):
+    with pytest.raises(ValueError, match="--n_devices"):
         _trainer(cfg, tmp_path / "dp", n_devices=2)
     with pytest.raises(ValueError, match="monitor_mode"):
         _trainer(_cfg(ddir, monitor_mode="up"), tmp_path / "mm")
@@ -500,7 +503,7 @@ def test_train_cli_and_generate_config(tmp_path, jax_generate, signals_restored)
     assert tr.state.step == 2 and tr.logdir.endswith("_cb") and tr.train_cfg.learning_rate == 2e-3
     again = t_train_cli.main(["-r", tr.logdir, "--device", "cpu", "--max_steps", "1", "--no_wandb"])
     assert again.state.step == 3 and again.ckpt.latest_step() == 3
-    with pytest.raises(NotImplementedError, match="DDP"):
+    with pytest.raises(ValueError, match="coordinator"):  # several hosts need process 0's address
         t_train_cli.main(["--base", base, "--num_processes", "2"])
     tdir = tmp_path / "templates"
     os.makedirs(tdir)
