@@ -85,14 +85,17 @@ the device's idle share):
   that the phase writes: map re-query on a 2x2 grid with --output_dir
   (the frames, merged_pcds.ply and the map's rgbd_integrated_mesh.ply and
   rgbd_integrated_trimesh.ply), then the spiral, cylinder and pose-file
-  trajectories; every file of the reference's layout, PLY sizes that match
+  trajectories, and a run from a template of another size (LANCZOS-resized
+  on load); every file of the reference's layout, PLY sizes that match
   their headers, one z-buffer and one codeword launch a frame, and the
   unroll, export and mesh host times apart; then the exports of a
   coherent-plane map (random-weight depth puts triangles in nearly every
   observed voxel, which makes the map run's exports host-bound);
 - inference_step: `serving.build_inference_step` at the flagship width
-  (f32): one z-buffer and one codeword launch, finite outputs, its time a
-  call, and the same step on the CPU under parity's gates;
+  (f32), given a config that asks for flash attention: one z-buffer and
+  one codeword launch and no flash (the step strips the field), finite
+  outputs, its time a call, and the same step on the CPU under parity's
+  gates;
 - serve: the serve CLI's server (`serve.build_server`, bf16, seeded random
   weights, CLEVR on serve.py's 5 x 5 example grid) behind
   `run_http_server` on 127.0.0.1, over HTTP: /healthz, /warmup, two
@@ -123,6 +126,10 @@ the device's idle share):
   the same launches; then parity_train_bf16, its batch-2 step on the card
   and on the CPU, each held to the CPU's f32 step at a codebook where no
   latent changes codeword, and a planted fault (dV zeroed) that must fail;
+- train_batch1: the same f32 step at batch 1, whose config asks for flash
+  attention (as every training YAML does), so that the step runs the
+  three attention kernels at [1, 4096, 256] and [1, 256, 512], as at
+  batch 16 (the attention checks above hold them there too);
 - the trainer (trainer_phases), on a CLEVR-style dataset written from a
   seed into a temporary directory (256^2 PNGs, half of them Paeth-filtered,
   ray depths, pose graphs, file lists and the codebook phase's packed
@@ -138,8 +145,13 @@ the device's idle share):
   mid-run (an emergency checkpoint, training goes on), -r for one more
   step, and the same timings; generate_config,
   the generate CLI with --config and --ckpt on the conditional run, 3
-  frames; parity_trainer, two Trainer steps (accumulation 2, the
-  scheduler on) on the card against the CPU under parity_train's gates;
+  frames, no flash attention though the run's YAML asks for it;
+  parity_trainer, two Trainer steps (accumulation 2, the scheduler on) on
+  the card against the CPU under parity_train's gates; tools, the port's
+  JAX-free tools: pack_dataset packs the train split at 128^2 from the
+  256^2 PNGs (bit-equal to the PNG path), convert_lpips converts seeded
+  VGG16 and LPIPS-head .pth files, and the train CLI runs two steps of the
+  codebook YAML at 128^2 from the packed loader with those LPIPS weights;
 - data parallelism (the port's parallel/, with the rank functions of
   sgam_neurips22_tpu_torch/studies/data_parallel.py): dp_world1, the
   conditional YAML's step at batch 16 (f32) through the data-parallel path
@@ -153,9 +165,13 @@ the device's idle share):
   gradients) that must fail, and every rank's parameters, Adam moments and
   k-means state bit-equal after two steps and a refresh; scenes_sharded, in
   the same two ranks, the 8-scene unrolls split 4 a rank against the
-  unsharded ones: one f32 step within 1e-5 relative, the bf16 splat
-  unroll's PSNR per scene (reported), the bf16 map unroll's stats summed
-  over the ranks (their recycled slots equal to the ranks' per-scene sum).
+  unsharded ones: one f32 step within 1e-5 relative, and one step of 2
+  scenes, one a rank, against the unsharded 2-scene step (each rank runs
+  flash attention at batch 1, as the whole batch takes it), the bf16
+  splat unroll's PSNR per scene (reported), the bf16 map unroll's stats
+  summed over the ranks (their recycled slots equal to the ranks'
+  per-scene sum). dp_two_ranks_one_card's batch has halves of two kinds
+  (random images and flat walls), on which both planted faults must fail.
 
 Each phase prints one JSON line with its seconds; --out DIR also writes the
 details to DIR/chip_smoke.json and nvcc's register report to
@@ -189,10 +205,12 @@ BATCHED_F32_FRAMES = 12  # frames a scene of the f32 8-scene unroll (cut from FR
 # the forward: the main path's two shapes, ragged S, and together every (C,
 # BQ) tile that its launch rule picks on an H100 (BQ 64 / 16, 32 / 16 at C=512);
 # the B=16 ragged shapes run the large tiles with a partial last query block,
-# and at S=280 a last key tile of 24 keys, past which a whole warp's keys lie
+# and at S=280 a last key tile of 24 keys, past which a whole warp's keys lie;
+# last, batch 1's two shapes (a rank of one scene, a batch-1 training step)
+BATCH1_SHAPES = ((1, 4096, 256), (1, 256, 512))
 FLASH_SHAPES = ((8, 4096, 256), (8, 256, 512), (16, 4096, 256), (2, 300, 128), (2, 300, 64), (16, 256, 512),
                 (3, 77, 512), (5, 1000, 512), (2, 300, 256), (16, 1024, 128), (16, 1024, 64), (16, 300, 128),
-                (16, 280, 256), (16, 280, 128), (16, 280, 64))
+                (16, 280, 256), (16, 280, 128), (16, 280, 64), *BATCH1_SHAPES)
 FLASH_TILES = {(c, bq) for c in (64, 128, 256, 512) for bq in (16, 32 if c == 512 else 64)}
 # the codeword search: latents P of the batch-1 unroll, the 8-scene unroll
 # and the training step (K=16384); the codebook phase's (P, K); the
@@ -216,7 +234,8 @@ ZB_LARGE = 1024  # the side of an image whose window would hold too few rows: th
 ZB_KERNELS = "zbuffer_tile_kernel|zbuffer_l2_kernel"  # the z-buffer's own kernels in a profile
 # calls whose profiler trace held no device time (device_ms, profile_unroll)
 PROFILER_MISSES: list[str] = []
-BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64))  # training step x2, ragged S x2
+# training step x2, ragged S x2, a batch-1 training step's two
+BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64), *BATCH1_SHAPES)
 
 
 def emit(obj) -> None:
@@ -905,7 +924,8 @@ def parity_step(torch, gen, cpu_model, failures, seeds_batch=None, batches=None)
     """Frame 1 of the unroll on the card against the same step on the CPU
     (plain versions), same weights and inputs, stage by stage: for the
     generator's own scene, or for the scenes of seeds_batch at once (the
-    flash-attention path at 2 scenes and up, as the batched unroll runs),
+    flash-attention path at 2 scenes and up, as the batched unroll asks
+    for it, and the plain path at 1),
     or from a given (card, CPU) pair of conditioning batches (map re-query,
     whose CPU batch is rendered and warped on the CPU)."""
     from sgam_neurips22_tpu_torch.models.conditioning import get_x
@@ -932,8 +952,8 @@ def parity_step(torch, gen, cpu_model, failures, seeds_batch=None, batches=None)
         # 2. encoder latent from the same x: max error <= 1e-4 of the
         #    latent's largest magnitude (f32 conv sums in another order)
         x, m = cond.x, cond.extrapolation_mask
-        pre = model.encode_prequant(x, m)
-        pre_c = cpu_model.encode_prequant(x.cpu(), m.cpu())
+        pre = model.encode_prequant(x, m, flash)
+        pre_c = cpu_model.encode_prequant(x.cpu(), m.cpu(), flash)
         latent_rel = float((pre.cpu() - pre_c).abs().max() / pre_c.abs().max())
         d = pre.shape[-1]
         idx = nearest_codeword_indices(pre.reshape(-1, d), model.codebook)
@@ -941,8 +961,8 @@ def parity_step(torch, gen, cpu_model, failures, seeds_batch=None, batches=None)
         # 3. decode from the same indices: rgb at atol 1e-3, metric depth at
         #    1e-3 relative (depth = 1/disparity amplifies absolute error)
         zq = model.codebook[idx.long()].reshape(pre.shape)
-        xrec = model.decode(zq).cpu()
-        xrec_c = cpu_model.decode(zq.cpu())
+        xrec = model.decode(zq, flash).cpu()
+        xrec_c = cpu_model.decode(zq.cpu(), flash)
         rgb_err = float((xrec[..., :3].clamp(-1, 1) - xrec_c[..., :3].clamp(-1, 1)).abs().max())
         depth, depth_c = codec.decode(xrec[..., 3]), codec.decode(xrec_c[..., 3])
         depth_rel = float(((depth - depth_c).abs() / depth_c.abs().clamp(min=1.0)).max())
@@ -998,8 +1018,10 @@ def parity_step_bf16(torch, gen, cpu_model16, cpu_model, failures, seeds_batch=N
         cond_c = condition(batches[1])
         x_agree = float((cond.x.cpu() == cond_c.x).all(dim=-1).float().mean())
         x, m = cond.x.cpu(), cond.extrapolation_mask.cpu()
-        res, res_c, ref = gen.model(cond.x, cond.extrapolation_mask), cpu_model16(x, m), cpu_model(x, m)
-    out = {"scenes": int(cond.x.shape[0]), "flash_attention": cond.x.shape[0] >= 2,
+        flash = cond.x.shape[0] >= 2  # as the unrolls ask for it
+        res, res_c, ref = (gen.model(cond.x, cond.extrapolation_mask, flash=flash),
+                           cpu_model16(x, m, flash=flash), cpu_model(x, m, flash=flash))
+    out = {"scenes": int(cond.x.shape[0]), "flash_attention": flash,
            "x_identical_pixel_share": x_agree, "xrec_dtype": str(res.xrec.dtype),
            "gpu_bf16_vs_cpu_f32": xrec_gate(torch, res.xrec, ref.xrec, res.indices, ref.indices),
            "cpu_bf16_vs_cpu_f32": xrec_gate(torch, res_c.xrec, ref.xrec, res_c.indices, ref.indices),
@@ -1029,19 +1051,18 @@ def train_config(torch, bs: int, dtype: str = "float32"):
     """The conditional-generation training configuration of `bench.py
     --config train_conditional` on the flagship model (phase
     conditional_generation, n_embed 16384, depth_range (7, 16), as JAX's
-    flagship_config): remat, flash attention (the port's AttnBlock takes
-    it at batch >= 2), LossConfig(disc_start=0), LR 1e-4; with dtype
-    "bfloat16", `--train_dtype bfloat16` (train_conditional_bf16)."""
+    flagship_config): remat, flash attention (`flash_attention=True`, as
+    bench.py sets it: every attention block takes it, at any batch),
+    LossConfig(disc_start=0), LR 1e-4; with dtype "bfloat16",
+    `--train_dtype bfloat16` (train_conditional_bf16)."""
     import dataclasses
 
     from sgam_neurips22_tpu_torch.serving import flagship_config
     from sgam_neurips22_tpu_torch.training.losses import LossConfig
     from sgam_neurips22_tpu_torch.training.train_step import TrainConfig
 
-    if bs < 2:
-        raise ValueError("the training phases run flash attention, which AttnBlock takes at batch >= 2")
     model = flagship_config(compute_dtype=dtype)
-    model = dataclasses.replace(model, ddconfig=dataclasses.replace(model.ddconfig, remat=True))
+    model = dataclasses.replace(model, ddconfig=dataclasses.replace(model.ddconfig, remat=True, flash_attention=True))
     return TrainConfig(model=model, loss=LossConfig(disc_start=0), learning_rate=TRAIN_LR)
 
 
@@ -1805,7 +1826,7 @@ def map_parity_batched(torch, np, cpu_model, cpu_model16, seeds_batch, failures)
         if name == "f32":
             res[name] = parity_step(torch, gen, cpu_model, failures, batches=batches)
             with torch.inference_mode():
-                gen._step(plan, 0, rgb_flat, depth_flat, vol, None)
+                gen._step(plan, 0, rgb_flat, depth_flat, vol, None, flash=True)  # 2 scenes: the batched unroll's path
                 tgt = [s * gen.grid.size + plan["tgt"][0] for s in range(len(seeds2))]
                 integrate(vol_c, gen.tsdf_cfg, depth_flat[tgt].cpu(), None, gen.ks[0].cpu(), plan["tgt_w2c"][0].cpu())
             st = state_equal(torch, vol, vol_c)
@@ -1836,14 +1857,15 @@ def ply_counts(path) -> dict:
     return {**counts, "bytes": len(data), "size_matches_header": size == len(data)}
 
 
-def write_template(np, rng, root: Path) -> None:
-    """A clevr-infinite seed template in the reference layout at H x W: an
-    8-bit RGB PNG and its ray depth, U(8, 14), at grid (0, 0)."""
+def write_template(np, rng, root: Path, size: tuple = (H, W)) -> None:
+    """A clevr-infinite seed template in the reference layout at `size`
+    (H x W unless given): an 8-bit RGB PNG and its ray depth, U(8, 14), at
+    grid (0, 0)."""
     from sgam_neurips22_tpu_torch.pipeline.png import write_png
 
     root.mkdir(parents=True)
-    write_png(str(root / "im_00000_00_00.png"), rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
-    np.save(root / "dm_00000_00_00.npy", rng.uniform(8, 14, (H, W)).astype(np.float32))
+    write_png(str(root / "im_00000_00_00.png"), rng.integers(0, 256, (*size, 3), dtype=np.uint8))
+    np.save(root / "dm_00000_00_00.npy", rng.uniform(8, 14, size).astype(np.float32))
 
 
 def write_pose_file(np, path: Path, n: int) -> None:
@@ -1860,7 +1882,9 @@ GENERATE_RUNS = (  # (name, generate.py flags, frames generated): the map run wr
     ("spiral", ["--rows", "4", "--trajectory", "spiral"], 3),
     ("cylinder", ["--rows", "4", "--trajectory", "cylinder"], 3),
     ("pose_file", ["--rows", "4", "--trajectory", "trajectory"], 3),
+    ("template_resize", ["--rows", "2", "--cols", "1"], 1),  # from a TEMPLATE_SIDE^2 template
 )
+TEMPLATE_SIDE = 320  # the template_resize run's template: LANCZOS-resized to H x W on load
 
 
 def coherent_export(torch, np, model, seeds, out_dir: Path) -> dict:
@@ -1911,8 +1935,13 @@ def generate_phase(torch, np, cpu_model, counters, failures, model16=None, seeds
     map re-query rgbd_integrated_mesh.ply and rgbd_integrated_trimesh.ply),
     PLY sizes that match their headers, one z-buffer and one codeword launch
     a generated frame, and the host seconds of the unroll, the frame and
-    point-cloud exports and the mesh apart. With model16 and seeds it
-    also times the exports of a coherent-plane map (coherent_export)."""
+    point-cloud exports and the mesh apart. The template_resize run reads a
+    template of TEMPLATE_SIDE^2, which the loader resizes to H x W with
+    Pillow's LANCZOS (the branch a template of another size takes): its
+    seed frame must be that resize of the template's PNG (within one level:
+    the frame's PNG is written from the [-1, 1] float frame). With model16
+    and seeds it also times the exports of a coherent-plane map
+    (coherent_export)."""
     import tempfile
 
     from sgam_neurips22_tpu_torch import generate
@@ -1939,6 +1968,7 @@ def generate_phase(torch, np, cpu_model, counters, failures, model16=None, seeds
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         write_template(np, np.random.default_rng(SEED + 5), root / "templates")
+        write_template(np, np.random.default_rng(SEED + 7), root / "templates_resize", (TEMPLATE_SIDE,) * 2)
         t0 = time.perf_counter()
         torch.save({"state_dict": cpu_model.state_dict()}, root / "last.ckpt")
         out["ckpt_write_seconds"] = time.perf_counter() - t0
@@ -1949,8 +1979,9 @@ def generate_phase(torch, np, cpu_model, counters, failures, model16=None, seeds
             for name, flags, frames in GENERATE_RUNS:
                 timers.clear()
                 out_dir = root / name
+                templates = root / ("templates_resize" if name == "template_resize" else "templates")
                 argv = ["--dataset", "clevr-infinite", "--ckpt", str(root / "last.ckpt"), "--template_dir",
-                        str(root / "templates"), "--output_dir", str(out_dir), "--resolution", str(H), *flags]
+                        str(templates), "--output_dir", str(out_dir), "--resolution", str(H), *flags]
                 if name == "pose_file":
                     argv += ["--pose_file", str(root / "cam0_to_world.txt")]
                 for fn in counters:
@@ -1981,6 +2012,17 @@ def generate_phase(torch, np, cpu_model, counters, failures, model16=None, seeds
                 run["ok"] = (run["files_as_reference"] and all(x["size_matches_header"] for x in plys.values())
                              and launches["zbuffer_min"] == frames and launches["nearest_codeword"] == frames
                              and launches["flash_attention_fwd"] == 0)
+                if name == "template_resize":
+                    from PIL import Image
+
+                    from sgam_neurips22_tpu_torch.pipeline.png import read_png
+
+                    with Image.open(templates / "im_00000_00_00.png") as im:
+                        want_seed = np.asarray(im.convert("RGB").resize((W, H), resample=Image.LANCZOS), np.int16)
+                    seed_diff = int(np.abs(read_png(str(out_dir / "im_00000_00_00.png")).astype(np.int16)
+                                           - want_seed).max())
+                    run.update(template_side=TEMPLATE_SIDE, seed_frame_max_level_diff_vs_lanczos=seed_diff)
+                    run["ok"] = run["ok"] and seed_diff <= 1
                 if not run["ok"]:
                     failures.append(f"generate {name}: {run}")
                 out["runs"][name] = run
@@ -2100,17 +2142,18 @@ def loader_rates(np, root: Path, by_filter: dict) -> dict:
     return out
 
 
-def run_train_cli(argv: list, observe=None):
+def run_train_cli(argv: list, lpips_weights: str = ""):
     """The port's train CLI (`sgam_neurips22_tpu_torch.train.main`) in this
-    process; the signal handlers it installs are put back afterwards.
-    `observe(trainer_class)` may wrap methods for the run."""
+    process, with `--lpips_weights` (none: seeded random LPIPS); the
+    signal handlers it installs are put back afterwards."""
     import signal
 
     from sgam_neurips22_tpu_torch import train as train_cli
 
     saved = {s: signal.getsignal(s) for s in (signal.SIGUSR1, signal.SIGUSR2, signal.SIGTERM)}
     try:
-        return train_cli.main([*argv, "--no_wandb", "--lpips_weights", "", "--device", "cuda", "--n_devices", "1"])
+        return train_cli.main([*argv, "--no_wandb", "--lpips_weights", lpips_weights, "--device", "cuda",
+                               "--n_devices", "1"])
     finally:
         for s, h in saved.items():
             signal.signal(s, h)
@@ -2285,7 +2328,9 @@ def generate_config_phase(torch, np, run_dir: str, counters, failures) -> dict:
     """`python -m sgam_neurips22_tpu_torch.generate --config
     <run>/config.yaml --ckpt <run>` (the conditional run) for 3 frames on a
     4 x 1 grid from a seed template: every file of the reference's layout,
-    finite frames, one z-buffer and one codeword launch a frame."""
+    finite frames, one z-buffer and one codeword launch a frame, and no
+    flash attention although the run's YAML asks for it (the batch-1
+    unroll strips the field, as JAX's does)."""
     from sgam_neurips22_tpu_torch import generate
     from sgam_neurips22_tpu_torch.pipeline.ordering import ORDERS
     from sgam_neurips22_tpu_torch.pipeline.png import read_png
@@ -2311,7 +2356,7 @@ def generate_config_phase(torch, np, run_dir: str, counters, failures) -> dict:
            "missing": sorted(want - got), "finite_depth": finite, "frames_differ": len(frames) == 4 and
            not np.array_equal(frames[1], frames[2])}
     rep["ok"] = (rep["files_as_reference"] and finite and launches["zbuffer_min"] == 3
-                 and launches["nearest_codeword"] == 3)
+                 and launches["nearest_codeword"] == 3 and launches["flash_attention_fwd"] == 0)
     if not rep["ok"]:
         failures.append(f"generate_config: {rep}")
     return rep
@@ -2443,8 +2488,141 @@ def parity_trainer(torch, np, root: Path, failures) -> dict:
     return res
 
 
+PACK_RES = (128, 128)  # pack_dataset's resolution: the trainer dataset's 256^2 PNGs are LANCZOS-resized
+
+
+def train_batch1(torch, np, counters, failures, card) -> dict:
+    """The conditional training step at batch 1 with flash attention on
+    (train_config: the YAML's field, as a rank holding one image of a YAML
+    run, or a single process at batch 1, runs it): a warm-up step, then
+    TRAIN_STEPS counted steps, whose launches a step must be the batch-16
+    step's (z-buffer 1, codeword 1, flash forward 12, dQ 7, dK/dV 7: the
+    kernels at [1, 4096, 256] and [1, 256, 512]); finite logs, every
+    trainable parameter moved; ms/step."""
+    from sgam_neurips22_tpu_torch.training.lpips import random_lpips
+    from sgam_neurips22_tpu_torch.training.train_step import create_train_state, split_params, train_step
+
+    cfg = train_config(torch, 1)
+    state = create_train_state(cfg, seed=SEED, device="cuda")
+    lpips = random_lpips(SEED + 2).cuda()
+    batch = train_batch(torch, np, 1, "cuda")
+    trainable = split_params(state.model, cfg.phase)[0]
+    before = {n: p.detach().clone() for n, p in trainable}
+    train_step(state, batch, lpips, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        _, logs = train_step(state, batch, lpips, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    totals = {fn.__name__: fn.launches for fn in counters}
+    logs = {k: float(v) for k, v in logs.items()}
+    want = {"zbuffer_min": 1, "nearest_codeword": 1, "flash_attention_fwd": 12, "flash_attention_dq": 7,
+            "flash_attention_dkv": 7}
+    rep = {"batch": 1, "flash_attention": cfg.model.ddconfig.flash_attention, "steps": TRAIN_STEPS,
+           "ms_per_step": dt / TRAIN_STEPS * 1e3, "launches": totals,
+           "launches_per_step": {k: v / TRAIN_STEPS for k, v in totals.items()},
+           "finite": all(np.isfinite(v) for v in logs.values()), "logs": logs,
+           "trainable_unmoved": [n for n, p in trainable if torch.equal(p.detach(), before[n])],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    rep["ok"] = rep["launches_per_step"] == want and rep["finite"] and not rep["trainable_unmoved"]
+    if not rep["ok"]:
+        failures.append(f"train_batch1: {rep} (launches a step wanted {want})")
+    del state, lpips, batch, before
+    return rep
+
+
+def lpips_torch_files(torch, np, root: Path) -> tuple:
+    """A torchvision-layout VGG16 state_dict (`features.N.weight` and
+    `.bias`, OIHW, He-scaled normals) and an LPIPS heads file
+    (`lin{i}.model.1.weight`) from numpy seed SEED + 13, written with
+    torch.save as root/vgg16.pth and root/vgg.pth: the inputs of
+    convert_lpips. Returns (paths, the two state dicts)."""
+    from sgam_neurips22_tpu_torch.training.lpips import LPIPS_CHANNELS, VGG16_CONVS
+
+    rng = np.random.default_rng(SEED + 13)
+    vgg = {}
+    for idx, cin, cout in VGG16_CONVS:
+        vgg[f"features.{idx}.weight"] = torch.from_numpy(
+            (rng.standard_normal((cout, cin, 3, 3)) * np.sqrt(2.0 / (9 * cin))).astype(np.float32))
+        vgg[f"features.{idx}.bias"] = torch.from_numpy(rng.uniform(-0.1, 0.1, cout).astype(np.float32))
+    lin = {f"lin{i}.model.1.weight": torch.from_numpy(rng.uniform(0, 0.1, (1, c, 1, 1)).astype(np.float32))
+           for i, c in enumerate(LPIPS_CHANNELS)}
+    paths = (root / "vgg16.pth", root / "vgg.pth")
+    torch.save(vgg, paths[0])
+    torch.save(lin, paths[1])
+    return paths, vgg, lin
+
+
+def tools_phase(torch, np, root: Path, counters, failures, card) -> dict:
+    """The port's JAX-free tools on the trainer's dataset (root/data):
+    `pack_dataset` (its CLI's main) packs the train split at PACK_RES from
+    the 256^2 PNGs (the LANCZOS branch), and its records must equal the PNG
+    path's examples at PACK_RES bit for bit (the first, a middle and the
+    last); `convert_lpips` (its CLI's main) converts synthetic VGG16 and
+    LPIPS-head .pth files; then the train CLI runs two steps of the codebook
+    YAML at PACK_RES (k-means off: its buffer is sized for 256^2 latents)
+    from the packed loader, with --lpips_weights the converted file: the
+    trainer's LPIPS must equal `lpips_from_torch` of the two files, its
+    loader be the packed one at PACK_RES, its logs finite and its kernels
+    launched."""
+    from sgam_neurips22_tpu_torch import convert_lpips, pack_dataset
+    from sgam_neurips22_tpu_torch.training.data.codebook_dataset import CodebookDataset
+    from sgam_neurips22_tpu_torch.training.data.packed import PackedCodebookDataset
+
+    data = str(root / "data")
+    h, w = PACK_RES
+    t0 = time.perf_counter()
+    shard = pack_dataset.main(["--dataset_dir", data, "--dataset", "clevr-infinite", "--resolution", str(h), str(w),
+                               "--splits", "train"])[0]
+    pack_s = time.perf_counter() - t0
+    packed, png = PackedCodebookDataset(shard), CodebookDataset("train", data, "clevr-infinite", PACK_RES)
+    picks = sorted({0, len(png) // 2, len(png) - 1})
+    records_equal = len(packed) == len(png) and all(
+        np.array_equal(packed[i]["image"], png[i]["image"]) for i in picks)
+    packed.close()
+    t0 = time.perf_counter()
+    (vgg_path, lin_path), vgg, lin = lpips_torch_files(torch, np, root)
+    weights = str(root / "lpips.pkl")
+    convert_lpips.main(["--vgg", str(vgg_path), "--lin", str(lin_path), "--out", weights])
+    convert_s = time.perf_counter() - t0
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tr = run_train_cli(["--base", CODEBOOK_YAML, "-l", str(root / "logs_tools"), "-n", "packed", "--max_steps", "1",
+                        f"data.params.dataset_dir={data}", f"data.params.image_resolution=[{h},{w}]",
+                        "model.params.online_kmeans_config.do_online_kmeans_clustering=false"], lpips_weights=weights)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    want_lp = convert_lpips.lpips_from_torch(vgg, lin).state_dict()
+    got_lp = tr.lpips.state_dict()
+    metrics = [json.loads(x) for x in open(os.path.join(tr.logdir, "metrics.jsonl"))]
+    train_logs = [m for m in metrics if any(k.startswith("train/") for k in m)]
+    rep = {"pack_resolution": list(PACK_RES), "pack_seconds": pack_s, "records": len(png),
+           "records_equal_png_path": records_equal, "convert_seconds": convert_s,
+           "lpips_equal_converted": set(got_lp) == set(want_lp) and all(
+               torch.equal(got_lp[k].cpu(), v) for k, v in want_lp.items()),
+           "packed_loader": isinstance(tr.data.train_ds, PackedCodebookDataset)
+           and (tr.data.train_ds.height, tr.data.train_ds.width) == PACK_RES,
+           "steps": tr.state.step, "train_seconds": train_s, "launches": launches,
+           "finite_logs": bool(train_logs) and all(np.isfinite(v) for m in train_logs for k, v in m.items()
+                                                   if k.startswith("train/")), "card": card}
+    tr.close()
+    rep["ok"] = (records_equal and rep["lpips_equal_converted"] and rep["packed_loader"] and rep["steps"] == 2
+                 and rep["finite_logs"] and launches["nearest_codeword"] > 0 and launches["flash_attention_fwd"] > 0)
+    if not rep["ok"]:
+        failures.append(f"tools: {rep}")
+    return rep
+
+
 def trainer_phases(torch, np, counters, failures, card, paths: dict, report: dict) -> None:
-    """The trainer's four phases, each emitted as it ends."""
+    """The trainer's phases, each emitted as it ends: loader,
+    train_codebook_cli, train_conditional_cli, generate_config,
+    parity_trainer and tools."""
     import tempfile
 
     from sgam_neurips22_tpu_torch.studies.trainer_host import write_train_dataset
@@ -2493,6 +2671,14 @@ def trainer_phases(torch, np, counters, failures, card, paths: dict, report: dic
         par["phase_seconds"] = time.perf_counter() - t0
         report["parity_trainer"] = par
         emit({"phase": "parity_trainer", **par})
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        tools = tools_phase(torch, np, root, counters, failures, card)
+        tools["phase_seconds"] = time.perf_counter() - t0
+        paths["tools_train_step"] = tools["launches"]
+        report["tools"] = tools
+        emit({"phase": "tools", **tools})
 
 
 # ---------------------------------------------------------- data parallel
@@ -2555,21 +2741,27 @@ def rel_err(torch, a, b) -> float:
 def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, keep) -> tuple:
     """Two gloo ranks on this card (`studies.data_parallel.rank_rehearsal`),
     DP_REHEARSAL_BATCH / 2 rows each, f32, the conditional YAML's step with
-    the k-means bookkeeping on: the first step against the one-process
-    step at batch DP_REHEARSAL_BATCH (`hold_step`: logs with d_weight,
-    the applied update, the running statistics), which the planted fault
-    of BatchNorm on local statistics must fail; the other planted fault,
-    the adaptive weight from local gradients, is reported (at this batch of
-    random 256^2 images the halves' mean d_weight lies 2.4e-4 from the whole
-    batch's on an H100, inside the 1e-3 gate; the CPU test's TINY batch
-    catches it); after a second step and a k-means refresh from a
+    the k-means bookkeeping on, on a batch whose halves differ in kind
+    (`global_batch(mixed=True)`: rank 1's rows are flat walls): the first
+    step against the one-process step at batch DP_REHEARSAL_BATCH
+    (`hold_step`: logs with d_weight, the applied update, the running
+    statistics), which both planted faults must fail: BatchNorm on local
+    statistics, and the adaptive weight from local gradients (on a batch of
+    random images alike the halves' mean d_weight lay 2.4e-4 from the whole
+    batch's on an H100, inside the 1e-3 gate; halves of two kinds have
+    gradients of different directions, which the mean of their ratios does
+    not average out); after a second step and a k-means refresh from a
     generator of each rank's own seed, the two ranks' parameters, buffers,
     Adam moments and k-means state bit-equal. gloo takes card tensors as
     they are on this torch build (no copy through the host).
 
     Then scenes_sharded, in the same two ranks: the 8-scene unrolls split
     4 a rank against the unsharded unroll on this card: one f32 step (grid
-    2 x 1) within 1e-5 relative (rgb and depth); the bf16 splat unroll's
+    2 x 1) within 1e-5 relative (rgb and depth); the same step of 2 scenes,
+    one a rank, against the unsharded 2-scene step (bit-equality and the
+    largest difference reported, within 1e-5 relative), each rank
+    launching the flash forward in all 7 attention blocks at batch 1, as
+    the whole batch of 2 takes flash; the bf16 splat unroll's
     frames (FRAMES a scene) as PSNR per scene against unroll_batched_bf16's
     (not gated: the batch size changes cuDNN's algorithm, and the model's
     random weights turn rounding into other frames); the bf16 map unroll
@@ -2583,19 +2775,22 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
 
     cfg = dp.train_cfg(DP_REHEARSAL_BATCH, kmeans=True)
     t0 = time.perf_counter()
-    one = dp.run_step(torch, np, cfg, DP_REHEARSAL_BATCH, 0)
+    one = dp.run_step(torch, np, cfg, DP_REHEARSAL_BATCH, 0, mixed=True)
     gen = dp.scene_gen(copy.deepcopy(cpu_model), (2, 1), seeds_batch, False)
     with torch.inference_mode():
         step_ref = [x.cpu() for x in gen.scene_expansion_batched(seeds_batch)]
+        step2_ref = [x.cpu() for x in gen.scene_expansion_batched(seeds_batch[:2])]
     del gen
     torch.cuda.empty_cache()
     parent_s = time.perf_counter() - t0
     cases = {"step_f32": ("float32", (2, 1), False, False, True),
+             "step_f32_one_a_rank": ("float32", (2, 1), False, False, True, 2),
              "splat_bf16": ("bfloat16", (FRAMES + 1, 1), False, False, True),
              "map_bf16": ("bfloat16", MAP_BATCH_GRID, True, False, False)}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        spec = {"bs": DP_REHEARSAL_BATCH, "out": tmp, "scenes": {"cases": cases, "seeds": seeds_batch}}
+        spec = {"bs": DP_REHEARSAL_BATCH, "out": tmp, "mixed": True,
+                "scenes": {"cases": cases, "seeds": seeds_batch}}
         distributed.launch(dp.rank_rehearsal, 2, args=(spec,), backend="gloo")
         ranks = [torch.load(Path(tmp) / f"rehearsal_rank{r}.pt", weights_only=False) for r in range(2)]
     ranks_s = time.perf_counter() - t0
@@ -2603,9 +2798,10 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
     clean = dp.hold_step(torch, runs["clean"], one)
     faults = {f: dp.hold_step(torch, runs[f], one) for f in ("local_batchnorm", "local_d_weight")}
     dp_rep = {"ranks": 2, "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
-              "global_batch": DP_REHEARSAL_BATCH, "vs_one_process": clean,
+              "global_batch": DP_REHEARSAL_BATCH, "batch_halves": "random | flat walls", "vs_one_process": clean,
               "planted_faults": {f: {"ok": g["ok"], "logs_ok": g["logs_ok"], "running_stats_ok": g["running_stats_ok"],
                                      "update_ok": g["update"]["ok"], "d_weight": g["d_weight"],
+                                     "d_weight_rel_err": g["log_rel_err"].get("train/d_weight"),
                                      "running_stats_max_abs_err": g["running_stats_max_abs_err"]}
                                  for f, g in faults.items()},
               "refreshed_codewords": [r["refreshed"] for r in ranks],
@@ -2613,12 +2809,14 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
               "logs_equal_across_ranks": ranks[0]["runs"]["clean"]["logs"] == ranks[1]["runs"]["clean"]["logs"],
               "moved_from_init": ranks[0]["moved_from_init"], "parent_seconds": parent_s, "ranks_seconds": ranks_s,
               "card": card}
-    dp_rep["ok"] = (clean["ok"] and not faults["local_batchnorm"]["ok"] and all(dp_rep["bit_equal"].values())
+    dp_rep["ok"] = (clean["ok"] and not faults["local_batchnorm"]["ok"] and not faults["local_d_weight"]["ok"]
+                    and all(dp_rep["bit_equal"].values())
                     and dp_rep["logs_equal_across_ranks"] and dp_rep["refreshed_codewords"] == [dp.REFRESHED] * 2)
     if not dp_rep["ok"]:
         failures.append(f"dp_two_ranks_one_card: {dp_rep}")
     sc = [r["scenes"] for r in ranks]
     step = sc[0]["step_f32"]
+    one_a_rank = sc[0]["step_f32_one_a_rank"]
     frames16 = sc[0]["splat_bf16"]["rgb"]
     summed = [float(x) for x in sc[0]["map_bf16"]["stats"]]
     per_scene = sum(s["pool_recycled"] for r in sc for s in r["map_bf16"]["scenes_pool"])
@@ -2626,6 +2824,15 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
     sc_rep = {"ranks": 2, "scenes_a_rank": SCENES // 2,
               "step_f32": {"rgb_rel_err": rel_err(torch, step["rgb"], step_ref[0]),
                            "depth_rel_err": rel_err(torch, step["depth"], step_ref[1])},
+              "step_f32_one_a_rank": {
+                  "scenes": 2, "bit_equal": torch.equal(one_a_rank["rgb"], step2_ref[0])
+                  and torch.equal(one_a_rank["depth"], step2_ref[1]),
+                  "rgb_max_abs_diff": float((one_a_rank["rgb"] - step2_ref[0]).abs().max()),
+                  "depth_max_abs_diff": float((one_a_rank["depth"] - step2_ref[1]).abs().max()),
+                  "rgb_rel_err": rel_err(torch, one_a_rank["rgb"], step2_ref[0]),
+                  "depth_rel_err": rel_err(torch, one_a_rank["depth"], step2_ref[1]),
+                  "flash_fwd_launches_per_rank": [r["step_f32_one_a_rank"]["launches"]["flash_attention_fwd"]
+                                                  for r in sc]},
               "splat_bf16": {"frames_per_scene": sc[0]["splat_bf16"]["frames_per_scene"],
                              "psnr_db_per_scene_vs_unsharded": [
                                  float(np.mean(psnr(torch, a[1:], b[1:])))
@@ -2637,7 +2844,9 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
                                                           for a, b in zip(summed, unsharded["stats"])],
                            "seconds": [r["map_bf16"]["seconds"] for r in sc]},
               "finite": all(r[c]["finite"] for r in sc for c in cases), "card": card}
-    sc_rep["ok"] = (sc_rep["step_f32"]["rgb_rel_err"] <= 1e-5 and sc_rep["step_f32"]["depth_rel_err"] <= 1e-5
+    sc_rep["ok"] = (all(sc_rep[c][e] <= 1e-5 for c in ("step_f32", "step_f32_one_a_rank")
+                        for e in ("rgb_rel_err", "depth_rel_err"))
+                    and sc_rep["step_f32_one_a_rank"]["flash_fwd_launches_per_rank"] == [7, 7]
                     and sc_rep["finite"] and summed[3] == per_scene and summed[0] > 0)
     if not sc_rep["ok"]:
         failures.append(f"scenes_sharded: {sc_rep}")
@@ -2679,14 +2888,20 @@ def want_launches(frames: int) -> dict:
 
 def inference_step_phase(torch, counters, failures) -> dict:
     """`serving.build_inference_step` at the flagship width (f32, batch 1,
-    256^2, 5 sources): one call on the card whose launches are counted
-    (one z-buffer, one codeword), finite outputs, the time a call (CUDA
-    events), and the same step on the CPU through the plain paths (TF32
-    off) under parity_step's gates: RGB at atol 1e-3, metric depth at 1e-3
-    relative (of max(depth, 1))."""
+    256^2, 5 sources), given the config with flash_attention on as a
+    training YAML sets it: one call on the card whose launches are counted
+    (one z-buffer, one codeword, no flash attention: the step strips the
+    field, as JAX's does), finite outputs, the time a call (CUDA events),
+    and the same step on the CPU through the plain paths (TF32 off) under
+    parity_step's gates: RGB at atol 1e-3, metric depth at 1e-3 relative
+    (of max(depth, 1))."""
+    import dataclasses
+
     from sgam_neurips22_tpu_torch.serving import build_inference_step, flagship_config
 
-    fn, (model, batch, gen) = build_inference_step(flagship_config("clevr-infinite"), device="cuda")
+    cfg = flagship_config("clevr-infinite")
+    cfg = dataclasses.replace(cfg, ddconfig=dataclasses.replace(cfg.ddconfig, flash_attention=True))
+    fn, (model, batch, gen) = build_inference_step(cfg, device="cuda")
     fn(model, batch, gen)  # warm-up: cuDNN's algorithm search
     torch.cuda.synchronize()
     for f in counters:
@@ -3327,6 +3542,15 @@ def main(argv=None) -> int:
     emit({"phase": "parity_train_bf16", "seconds": time.perf_counter() - t0, **parity_t16})
     torch.cuda.empty_cache()
 
+    # 18b. the training step at batch 1 with flash attention on (the
+    #      config's choice, whatever the batch)
+    t0 = time.perf_counter()
+    train1 = train_batch1(torch, np, counters, failures, card)
+    train1["seconds"] = time.perf_counter() - t0
+    paths["train_batch1"] = train1["launches"]
+    emit({"phase": "train_batch1", **train1})
+    torch.cuda.empty_cache()
+
     # 19. the trainer through its entry points: the loader's rates, the
     #     codebook and conditional YAMLs at full width through the train
     #     CLI, generate --config on the trained run, and two Trainer steps
@@ -3352,7 +3576,8 @@ def main(argv=None) -> int:
                   unroll_tsdf_ge_coherent=coh_rep, integration_clevr_stride2=s2_rep, unroll_tsdf_batched=mb_rep,
                   map_parity=parity_map, parity_map_batched=parity_map_b, generate=gen_rep, train=train,
                   parity_train=parity_t,
-                  train_bf16=train16, parity_train_bf16=parity_t16, profiler_misses=PROFILER_MISSES, failures=failures,
+                  train_bf16=train16, parity_train_bf16=parity_t16, train_batch1=train1,
+                  profiler_misses=PROFILER_MISSES, failures=failures,
                   seconds=time.perf_counter() - t_start)
     emit({"phase": "profiler", "misses": len(PROFILER_MISSES), "calls": sorted(set(PROFILER_MISSES))})
     if args.out:

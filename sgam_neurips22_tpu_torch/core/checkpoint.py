@@ -181,6 +181,32 @@ def checkpoint_file(path: str) -> Optional[str]:
     return os.path.join(ckdir, str(steps[-1]), CKPT_FILE) if steps else None
 
 
+ORBAX_STEP_MARKERS = ("_CHECKPOINT_METADATA", "default")  # orbax's step metadata and its StandardSave item
+
+
+def _orbax_step(path: str) -> bool:
+    """A numbered step directory of orbax's (its metadata or item) that holds
+    no port checkpoint."""
+    return (os.path.basename(path.rstrip(os.sep)).isdigit() and not os.path.isfile(os.path.join(path, CKPT_FILE))
+            and any(os.path.exists(os.path.join(path, m)) for m in ORBAX_STEP_MARKERS))
+
+
+def orbax_run(path: str) -> Optional[tuple]:
+    """(run directory, step or None) where `path` is a JAX trainer's orbax
+    checkpointing, read without orbax: its run directory (whose
+    `checkpoints/` holds numbered step directories with orbax's metadata
+    and no port `last.ckpt`), that `checkpoints/`, or one step directory
+    (whose step is given); None otherwise."""
+    path = os.path.abspath(path)
+    if _orbax_step(path):
+        return os.path.dirname(os.path.dirname(path)), int(os.path.basename(path))
+    sub = os.path.join(path, "checkpoints")
+    for ckdir, run in ((sub, path), (path, os.path.dirname(path))):
+        if os.path.isdir(ckdir) and any(_orbax_step(os.path.join(ckdir, n)) for n in os.listdir(ckdir)):
+            return run, None
+    return None
+
+
 def install_signal_checkpoint(save_fn: Callable[[], None]) -> None:
     """SIGUSR1 writes an emergency checkpoint and training goes on (the
     reference's `melk`); SIGTERM writes one and exits with 143

@@ -2,16 +2,65 @@
 
 Weights use the reference torch state_dict names
 (`encoder.down.0.block.0.norm1.weight`, ..., `quantize.embedding.weight`)
-and OIHW conv kernels, so `load_state_dict` maps one to one.
+and OIHW conv kernels, so `load_state_dict` maps one to one. The JAX
+package's parameter pickles (`init_vqmodel` or `init_lpips` trees) are read
+by `load_tree_pickle`, without JAX.
 """
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+
+CONVERTERS = ("LPIPS weights: python -m sgam_neurips22_tpu_torch.convert_lpips --vgg VGG.pth --lin vgg.pth "
+              "--out lpips.pkl; model weights: python tools/export_torch_ckpt.py RUN --out X.ckpt")
+
+
+def _reconstruct_jax_array(fun, args, arr_state, aval_state):
+    """`jax._src.array._reconstruct_array` without JAX: the numpy array a
+    pickled `jax.Array` holds (JAX's own rebuilds it the same way, then
+    puts it on a device with its aval, which a numpy tree has no use for)."""
+    np_value = fun(*args)
+    np_value.__setstate__(arr_state)
+    return np_value
+
+
+class _NumpyTreeUnpickler(pickle.Unpickler):
+    """An unpickler that reads `jax.Array` leaves as numpy arrays and
+    refuses every other class of JAX's, whose objects cannot be rebuilt
+    without importing JAX, which the port never does."""
+
+    def find_class(self, module: str, name: str):
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _reconstruct_jax_array
+        top = module.split(".")[0]
+        if top in ("jax", "jaxlib"):
+            raise ValueError(
+                f"the pickle holds {module}.{name} objects, which the port cannot read without JAX; write the "
+                f"tree with numpy or jax.Array leaves instead ({CONVERTERS})")
+        try:
+            return super().find_class(module, name)
+        except ImportError as e:
+            if top == "ml_dtypes":
+                raise ImportError(
+                    f"the pickle holds {module}.{name} leaves (bfloat16 arrays), which take the ml_dtypes package "
+                    "to read; it is not installed") from e
+            raise
+
+
+def load_tree_pickle(path: str) -> Any:
+    """The parameter tree of a JAX-package pickle (tools/convert_lpips.py's
+    `init_lpips` tree, a `model.pkl` of `init_vqmodel`'s), its leaves numpy
+    arrays whether they were pickled as numpy or as `jax.Array`s, read
+    without importing JAX. A bfloat16 leaf needs ml_dtypes; any other JAX
+    object raises. Unpickling runs code: load only files you trust."""
+    with open(path, "rb") as f:
+        return _NumpyTreeUnpickler(f).load()
 
 
 def from_jax_params(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -20,7 +69,8 @@ def from_jax_params(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndar
     The port's own copy of the walk in the JAX package's
     `core/torch_convert.params_to_state_dict`: dicts and lists become dotted
     names, 4-D HWIO conv kernels become OIHW, and `quantize.embedding`
-    gains its `.weight` suffix."""
+    gains its `.weight` suffix. A bfloat16 leaf (ml_dtypes) is widened to
+    float32, exactly."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(node, path):
@@ -32,6 +82,8 @@ def from_jax_params(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndar
                 walk(v, f"{path}.{i}")
         elif node is not None:
             arr = np.asarray(node)
+            if arr.dtype.name == "bfloat16":  # no torch counterpart of ml_dtypes' type
+                arr = arr.astype(np.float32)
             if path.endswith("quantize.embedding"):
                 path = path + ".weight"
             if arr.ndim == 4:

@@ -10,7 +10,8 @@ add the visible-only PSNR and SSIM, averaged with nanmean (a frame whose
 mask is empty scores NaN and is left out). `--fid` adds `fid_vgg`, the
 Frechet distance between the directories' VGG16 relu5_3 features; its
 weights come from `--lpips_weights` (a pickle of the JAX `init_lpips`
-tree with numpy leaves, as the trainer reads it), else seeded random ones
+tree, numpy or jax.Array leaves, as the trainer reads it: the port's
+`convert_lpips` writes one), else seeded random ones
 with a warning. The metrics run in float64 on `--device` (`cuda` by
 default; without a GPU it raises unless `--device cpu` is given).
 """
@@ -20,7 +21,6 @@ import argparse
 import glob
 import json
 import os
-import pickle
 
 import numpy as np
 import torch
@@ -49,13 +49,13 @@ def load_pairs(gen_dir: str, gt_dir: str, device: torch.device):
 
 def load_lpips(path: str, device: torch.device):
     """The LPIPS module whose VGG16 gives the FID features: the pickled
-    `init_lpips` tree at `path`, else seeded random weights (seed 0)."""
-    from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params, load_into
+    `init_lpips` tree at `path` (numpy or jax.Array leaves, read without
+    JAX), else seeded random weights (seed 0)."""
+    from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params, load_into, load_tree_pickle
     from sgam_neurips22_tpu_torch.training.lpips import LPIPS, random_lpips
 
     if path and os.path.exists(path):
-        with open(path, "rb") as f:
-            lp = load_into(LPIPS(), from_jax_params(pickle.load(f)))
+        lp = load_into(LPIPS(), from_jax_params(load_tree_pickle(path)))
     else:
         print("WARNING: FID with randomly initialized VGG features (numbers not comparable across machines)")
         lp = random_lpips(0)

@@ -48,8 +48,8 @@ from sgam_neurips22_tpu_torch.models.vqgan.nn import (
 
 @dataclass(frozen=True)
 class DDConfig:
-    """The reference's ddconfig node, plus the JAX package's `remat` and
-    `compute_dtype`."""
+    """The reference's ddconfig node, plus the JAX package's `remat`,
+    `compute_dtype` and `flash_attention`."""
 
     ch: int = 128
     out_ch: int = 4
@@ -64,13 +64,17 @@ class DDConfig:
     remat: bool = False
     # activation dtype of the conv stack: "float32" (parity) or "bfloat16"
     compute_dtype: str = "float32"
+    # flash attention in every AttnBlock (JAX DDConfig.flash_attention):
+    # None or False is the plain path; a caller's `flash=` overrides it per
+    # call, as JAX's batched unroll swaps the config (_flash_model_cfg)
+    flash_attention: bool | None = None
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "DDConfig":
-        """From a reference-schema `ddconfig` node, lists as tuples. Of the
-        JAX fields the port does not have, `flash_attention` is ignored
-        (`nn.AttnBlock` picks flash attention by batch) and `double_z`,
-        `dropout` and `resamp_with_conv` must hold their reference values."""
+        """From a reference-schema `ddconfig` node, lists as tuples, its
+        `flash_attention` kept as JAX keeps it. Of the JAX fields the port
+        does not have, `double_z`, `dropout` and `resamp_with_conv` must
+        hold their reference values."""
         for key, want in (("double_z", False), ("dropout", 0.0), ("resamp_with_conv", True)):
             if key in d and d[key] != want:
                 raise ValueError(f"ddconfig.{key}={d[key]!r}: the port supports {want!r} only")
@@ -93,36 +97,37 @@ def _save_convolutions(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _level(level: nn.Module, h: torch.Tensor) -> torch.Tensor:
+def _level(level: nn.Module, h: torch.Tensor, flash: bool | None = None) -> torch.Tensor:
     """One down or up level: its blocks (each followed by its attention
-    block where the level has them), then its down- or upsampling."""
+    block where the level has them, `flash` overriding its path when not
+    None), then its down- or upsampling."""
     for i_block, block in enumerate(level.block):
         h = block(h)
         if len(level.attn):
-            h = level.attn[i_block](h)
+            h = level.attn[i_block](h, flash)
     resample = getattr(level, "downsample", None) or getattr(level, "upsample", None)
     return h if resample is None else resample(h)
 
 
-def _run_level(level: nn.Module, h: torch.Tensor, remat: bool) -> torch.Tensor:
-    """_level(level, h), rematerialised on the backward pass when `remat` is
-    set and autograd records."""
+def _run_level(level: nn.Module, h: torch.Tensor, remat: bool, flash: bool | None = None) -> torch.Tensor:
+    """_level(level, h, flash), rematerialised on the backward pass when
+    `remat` is set and autograd records."""
     if not (remat and torch.is_grad_enabled()):
-        return _level(level, h)
-    return checkpoint(_level, level, h, use_reentrant=False,
+        return _level(level, h, flash)
+    return checkpoint(_level, level, h, flash, use_reentrant=False,
                       context_fn=partial(create_selective_checkpoint_contexts, _save_convolutions))
 
 
-def _mid(c: int) -> nn.Module:
+def _mid(c: int, flash: bool | None) -> nn.Module:
     mid = nn.Module()
     mid.block_1 = ResnetBlock(c, c)
-    mid.attn_1 = AttnBlock(c)
+    mid.attn_1 = AttnBlock(c, flash)
     mid.block_2 = ResnetBlock(c, c)
     return mid
 
 
-def _run_mid(mid: nn.Module, h: torch.Tensor) -> torch.Tensor:
-    return mid.block_2(mid.attn_1(mid.block_1(h)))
+def _run_mid(mid: nn.Module, h: torch.Tensor, flash: bool | None = None) -> torch.Tensor:
+    return mid.block_2(mid.attn_1(mid.block_1(h), flash))
 
 
 class Encoder(nn.Module):
@@ -144,22 +149,23 @@ class Encoder(nn.Module):
                 level.block.append(ResnetBlock(block_in, block_out))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
-                    level.attn.append(AttnBlock(block_in))
+                    level.attn.append(AttnBlock(block_in, cfg.flash_attention))
             if i_level != len(cfg.ch_mult) - 1:
                 level.downsample = Downsample(block_in)
                 curr_res //= 2
             self.down.append(level)
-        self.mid = _mid(block_in)
+        self.mid = _mid(block_in, cfg.flash_attention)
         self.norm_out = GroupNorm(block_in)
         self.conv_out = conv2d(block_in, cfg.z_channels)
         self.cfg = cfg
 
-    def forward(self, x):
-        """The latent in f32 whatever the compute dtype."""
+    def forward(self, x, flash: bool | None = None):
+        """The latent in f32 whatever the compute dtype; `flash` not None
+        overrides the attention blocks' path for this call."""
         h = self.conv_in(self.cfg.cast(x))
         for level in self.down:
-            h = _run_level(level, h, self.cfg.remat)
-        h = _run_mid(self.mid, h)
+            h = _run_level(level, h, self.cfg.remat, flash)
+        h = _run_mid(self.mid, h, flash)
         return at_least_f32(self.conv_out(swish(self.norm_out(h))))
 
 
@@ -172,7 +178,7 @@ class Decoder(nn.Module):
         block_in = cfg.ch * cfg.ch_mult[-1]
         curr_res = cfg.resolution // 2 ** (num_res - 1)
         self.conv_in = conv2d(cfg.z_channels, block_in)
-        self.mid = _mid(block_in)
+        self.mid = _mid(block_in, cfg.flash_attention)
         up = [None] * num_res
         for i_level in reversed(range(num_res)):
             level = nn.Module()
@@ -182,7 +188,7 @@ class Decoder(nn.Module):
                 level.block.append(ResnetBlock(block_in, block_out))
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
-                    level.attn.append(AttnBlock(block_in))
+                    level.attn.append(AttnBlock(block_in, cfg.flash_attention))
             if i_level != 0:
                 level.upsample = Upsample(block_in)
                 curr_res *= 2
@@ -192,14 +198,15 @@ class Decoder(nn.Module):
         self.conv_out = conv2d(block_in, cfg.out_ch)
         self.cfg = cfg
 
-    def features(self, z):
+    def features(self, z, flash: bool | None = None):
         """Everything before conv_out, up to and including the final
         norm + swish (JAX `apply_decoder_features`), back in f32: the
-        adaptive GAN weight differentiates w.r.t. conv_out's kernel alone."""
-        h = _run_mid(self.mid, self.conv_in(self.cfg.cast(z)))
+        adaptive GAN weight differentiates w.r.t. conv_out's kernel alone.
+        `flash` as in Encoder.forward."""
+        h = _run_mid(self.mid, self.conv_in(self.cfg.cast(z)), flash)
         for level in reversed(self.up):
-            h = _run_level(level, h, self.cfg.remat)
+            h = _run_level(level, h, self.cfg.remat, flash)
         return at_least_f32(swish(self.norm_out(h)))
 
-    def forward(self, z):
-        return self.conv_out(self.features(z))
+    def forward(self, z, flash: bool | None = None):
+        return self.conv_out(self.features(z, flash))

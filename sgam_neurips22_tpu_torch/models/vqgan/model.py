@@ -109,14 +109,15 @@ class VQModel(nn.Module):
                 m = m[..., None]
         return self.conv_in(_nchw(torch.cat([x, m], dim=-1)))
 
-    def encode_prequant(self, x, extrapolation_mask=None):
-        """conv_in -> encoder -> quant_conv: [B, H, W, 4] -> [B, h, w, D]."""
-        h = self.encoder(self._fold_mask(x, extrapolation_mask))
+    def encode_prequant(self, x, extrapolation_mask=None, flash=None):
+        """conv_in -> encoder -> quant_conv: [B, H, W, 4] -> [B, h, w, D].
+        `flash` not None overrides `ddconfig.flash_attention` for the call."""
+        h = self.encoder(self._fold_mask(x, extrapolation_mask), flash)
         return _nhwc(self.quant_conv(h)).contiguous()
 
-    def decode(self, quant):
+    def decode(self, quant, flash=None):
         """post_quant_conv -> decoder: [B, h, w, D] -> [B, H, W, out_ch]."""
-        return _nhwc(self.decoder(self.post_quant_conv(_nchw(quant))))
+        return _nhwc(self.decoder(self.post_quant_conv(_nchw(quant)), flash))
 
     def decode_features(self, quant):
         """Decoder features before its conv_out: [B, h, w, D] -> [B, H, W, ch]
@@ -128,18 +129,20 @@ class VQModel(nn.Module):
         return self.decoder.conv_out.weight
 
     def forward(self, x, extrapolation_mask=None, topk=None, sample_number=1, generator=None,
-                topk_position0_bug=False):
+                topk_position0_bug=False, flash=None):
         """Encode -> quantise (topk None) or sample (`quantize_topk`, with
         the mask and `generator` as JAX passes its mask and rng) -> decode;
         NHWC in and out. With topk, each of the `sample_number` latents is
-        decoded (folded into the batch) and xrec is [B, S, H, W, out_ch]."""
-        pre_quant = self.encode_prequant(x, extrapolation_mask)
+        decoded (folded into the batch) and xrec is [B, S, H, W, out_ch].
+        The attention blocks take `ddconfig.flash_attention`'s path, or
+        `flash`'s where it is not None (JAX swaps the model config)."""
+        pre_quant = self.encode_prequant(x, extrapolation_mask, flash)
         if topk is None:
             q = quantize(self.codebook, pre_quant, self.cfg.beta)
-            return ForwardResult(self.decode(q.z_q), q.loss, q.indices, pre_quant, q.z_q)
+            return ForwardResult(self.decode(q.z_q, flash), q.loss, q.indices, pre_quant, q.z_q)
         s = quantize_topk(self.codebook, pre_quant, topk, sample_number, extrapolation_mask,
                           position0_bug=topk_position0_bug, generator=generator)
         b, n = s.z_q.shape[:2]
-        xrec = self.decode(s.z_q.reshape(b * n, *s.z_q.shape[2:]))
+        xrec = self.decode(s.z_q.reshape(b * n, *s.z_q.shape[2:]), flash)
         xrec = xrec.reshape(b, n, *xrec.shape[1:])
         return ForwardResult(xrec, torch.zeros((), device=x.device), s.indices, pre_quant, s.z_q)

@@ -117,33 +117,35 @@ class ResnetBlock(nn.Module):
 class AttnBlock(nn.Module):
     """Single-head self-attention over the H*W tokens.
 
-    At batch >= 2 it goes through `ops.attention.flash_attention`, the
-    flash-attention kernel on the card, as the JAX pipeline runs
-    `attn_block(..., flash=True)` for S >= 2 scenes. At batch 1 it is the
-    plain matmul + softmax path of the JAX `attn_block(..., flash=False)`,
-    with the scale applied after the dot as there: the batch-1 unroll's
-    codeword indices are held to the JAX ones, and
-    `ops.attention.flash_attention_plain` rounds as the kernel does (scale on
-    q before the dot) instead. In bf16 the plain path takes the logits and
-    the softmax in f32 (q and k upcast: their products are exact in f32)
-    and the second product in bf16, as JAX's einsums do; the flash path
-    computes in f32 and returns bf16."""
+    The attention path is chosen by the caller, as the JAX `attn_block(...,
+    flash=cfg.flash_attention)` takes it from its config: `flash` (from
+    `DDConfig.flash_attention`) is the block's default, and a `forward(x,
+    flash=...)` that is not None overrides it for that call. Flash goes
+    through `ops.attention.flash_attention`: the flash-attention kernel on
+    the card, its plain version on the CPU (which rounds as the kernel
+    does: scale on q before the dot); it computes in f32 and returns the
+    input's dtype. Off is the plain matmul + softmax path of the JAX
+    `attn_block(..., flash=False)` at any batch, with the scale applied
+    after the dot as there; in bf16 it takes the logits and the softmax in
+    f32 (q and k upcast: their products are exact in f32) and the second
+    product in bf16, as JAX's einsums do."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, flash: bool | None = None):
         super().__init__()
+        self.flash = bool(flash)
         self.norm = GroupNorm(c)
         self.q = conv2d(c, c, 1)
         self.k = conv2d(c, c, 1)
         self.v = conv2d(c, c, 1)
         self.proj_out = conv2d(c, c, 1)
 
-    def forward(self, x):
+    def forward(self, x, flash: bool | None = None):
         b, c, h, w = x.shape
         hn = self.norm(x)
         q = self.q(hn).reshape(b, c, h * w).transpose(1, 2)  # [B, S, C]
         k = self.k(hn).reshape(b, c, h * w)  # [B, C, S]
         v = self.v(hn).reshape(b, c, h * w)  # [B, C, S]
-        if b >= 2:
+        if self.flash if flash is None else flash:
             out = attention.flash_attention(
                 q.contiguous(), k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
             ).transpose(1, 2).reshape(b, c, h, w)

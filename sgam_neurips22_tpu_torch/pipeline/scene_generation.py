@@ -14,7 +14,9 @@ target depth from the TSDF map (`mapping.tsdf`), warps the sources into
 the target view through it (`geometry.warp.inverse_warp_multi_src`), and
 fuses each new frame into the map. The batched unroll keeps S scenes'
 buffers flat, [S*G, ...] (and S maps in one batched volume), shares the
-plan across scenes and runs the model at batch S with flash attention.
+plan across scenes and runs the model at batch S, with flash attention
+when S >= 2 (the batch-1 unroll never takes it, whatever the model's
+`DDConfig.flash_attention` says, as JAX's generator strips the field).
 `scene_expansion(fused=False)` steps frame by frame instead, planning each
 step when it comes and writing each frame out as it is made; `output_dir`
 then receives the reference's file layout (`export_frames`,
@@ -381,14 +383,15 @@ class InfiniteSceneGeneration:
         return get_x(batch, self.cfg.dataset, depth_range=None, collision=self.cfg.collision,
                      splat_stride=self.cfg.splat_stride)
 
-    def decode_batch(self, cond, generator: Optional[torch.Generator] = None):
+    def decode_batch(self, cond, generator: Optional[torch.Generator] = None, flash: bool = False):
         """(rgb [B, H, W, 3], metric depth [B, H, W]) from the conditioning,
         sample 0 of the configured top-k draw (`generator` draws it at
-        topk > 1). The model's attention takes the flash path at batch >= 2
-        and the plain one at batch 1, as the JAX pipeline selects its
-        kernel."""
+        topk > 1). The model's attention takes the flash path when `flash`
+        and the plain one otherwise, whatever its config says: the caller
+        chooses, as JAX's generator passes `_flash_model_cfg()` or its
+        flash-free config."""
         res = self.model(cond.x, extrapolation_mask=cond.extrapolation_mask, topk=self.cfg.topk,
-                         generator=generator, topk_position0_bug=self.cfg.topk_position0_compat)
+                         generator=generator, topk_position0_bug=self.cfg.topk_position0_compat, flash=flash)
         xrec = res.xrec[:, 0]  # sample 0
         return torch.clamp(xrec[..., :3], -1.0, 1.0), self.codec.decode(xrec[..., 3])
 
@@ -424,18 +427,18 @@ class InfiniteSceneGeneration:
         }
 
     def _step(self, plan: dict, t: int, rgb_flat, depth_flat, volume: Optional[TSDFVolume], generator,
-              coherent: bool = False) -> None:
+              coherent: bool = False, flash: bool = False) -> None:
         """Step t of the plan for the S scenes of the flat buffers: condition
-        (the splat, or map re-query from `volume`), decode at batch S, write
-        scene s's frame at s*G + tgt, and fuse the frames into `volume`.
-        `coherent` writes the coherent plane's depth in place of the
-        generated one (the single-scene unroll under coherent_plane_depth:
-        JAX's batched core does not)."""
+        (the splat, or map re-query from `volume`), decode at batch S (flash
+        attention where `flash`), write scene s's frame at s*G + tgt, and
+        fuse the frames into `volume`. `coherent` writes the coherent
+        plane's depth in place of the generated one (the single-scene
+        unroll under coherent_plane_depth: JAX's batched core does not)."""
         if volume is None:
             cond = self.condition(self.step_batch(plan, t, rgb_flat, depth_flat))
         else:
             cond = get_x(self.requery_batch(plan, t, rgb_flat, depth_flat, volume), self.cfg.dataset)
-        rgb, depth = self.decode_batch(cond, generator)
+        rgb, depth = self.decode_batch(cond, generator, flash)
         if coherent:
             depth = self._plane_depth(plan["tgt_w2c"][t])[None]
         dst = torch.arange(rgb.shape[0], device=self.device) * self.grid.size + plan["tgt"][t]
@@ -445,14 +448,14 @@ class InfiniteSceneGeneration:
             integrate(volume, self.tsdf_cfg, depth, (rgb + 1.0) / 2.0, self.ks[0], plan["tgt_w2c"][t])
 
     def _unroll(self, plan: dict, rgb_flat, depth_flat, volume: Optional[TSDFVolume],
-                generator: Optional[torch.Generator], coherent: bool = False) -> None:
+                generator: Optional[torch.Generator], coherent: bool = False, flash: bool = False) -> None:
         """Every step of the plan (_step) for all scenes of the flat
         buffers; no step reads a device value on the host. At topk > 1 the
         steps draw from `generator` in turn; None is a generator on the
         device seeded with 3, as JAX's default key is PRNGKey(3)."""
         generator = self._generator(generator)
         for t in range(len(plan["tgt"])):
-            self._step(plan, t, rgb_flat, depth_flat, volume, generator, coherent)
+            self._step(plan, t, rgb_flat, depth_flat, volume, generator, coherent, flash)
 
     def _generator(self, generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
         if generator is None and self.cfg.topk > 1:
@@ -560,16 +563,22 @@ class InfiniteSceneGeneration:
             (`batched_volume`: its scenes), whose `stats` are summed over
             the ranks, the batch-global telemetry of JAX's volume. At topk > 1
             each rank draws the whole batch's noise and keeps its scenes'
-            rows, so every scene's draws are the unsharded run's. A rank
-            runs the model at its own batch, S / n: with one scene a rank
-            that is batch 1, whose attention takes the plain path where the
-            unsharded batch takes flash attention (`models.vqgan.nn.AttnBlock`),
-            so its frames round differently; two or more a rank take the
-            unsharded route.
+            rows, so every scene's draws are the unsharded run's. The
+            attention path is the whole batch's, as in JAX's one program
+            over the mesh: a rank of one scene takes flash attention when
+            S >= 2, as the unsharded batch does.
         Returns:
           (rgb [S, G, H, W, 3], depth [S, G, H, W]) on the device.
+
+        The model takes flash attention when S >= 2 (`decode_batch`), as
+        JAX's batched unroll swaps in `_flash_model_cfg()` at S >= 2. JAX
+        does so on the TPU alone and runs its naive attention on the CPU;
+        the port keeps the flash path on the CPU too, where it is the
+        kernel's plain version, so that the CPU tests exercise the path the
+        card runs.
         """
         self._check_seeds(seeds_batch)
+        flash = len(seeds_batch) >= 2
         if mesh is not None and mesh.group is not None:
             s, n = len(seeds_batch), mesh.size
             if s % n:
@@ -577,11 +586,16 @@ class InfiniteSceneGeneration:
             per = s // n
             distributed.replicate_global(self.model, mesh)
             generator = self._generator(generator)
-            rgb, depth = self.scene_expansion_batched(seeds_batch[mesh.rank * per: (mesh.rank + 1) * per],
-                                                      None if generator is None else RowShard(generator, mesh.rank, n))
+            rgb, depth = self._expand_batched(seeds_batch[mesh.rank * per: (mesh.rank + 1) * per],
+                                              None if generator is None else RowShard(generator, mesh.rank, n), flash)
             if self.cfg.use_rgbd_integration:  # the batch's telemetry, as JAX's one volume keeps it
                 distributed.all_reduce_(self.batched_volume.stats, group=mesh.group)
             return distributed.all_gather_rows(rgb, mesh.group), distributed.all_gather_rows(depth, mesh.group)
+        return self._expand_batched(seeds_batch, generator, flash)
+
+    def _expand_batched(self, seeds_batch: list, generator, flash: bool):
+        """scene_expansion_batched's unroll of seeds_batch's scenes on this
+        process, with the attention path `flash`."""
         rgb_flat, depth_flat = self.batched_buffers(seeds_batch)
         h, w = self.cfg.image_resolution
         s, g = len(seeds_batch), self.grid.size
@@ -589,7 +603,7 @@ class InfiniteSceneGeneration:
         if self.cfg.use_rgbd_integration:
             self.batched_volume = None  # free the last one first
             volume = self.batched_volume = self.seeded_volume(seeds_batch, depth_flat)
-        self._unroll(self.build_plan(), rgb_flat, depth_flat, volume, generator)
+        self._unroll(self.build_plan(), rgb_flat, depth_flat, volume, generator, flash=flash)
         return rgb_flat.reshape(s, g, h, w, 3), depth_flat.reshape(s, g, h, w)
 
     def seeded_volume(self, seeds_batch: list, depth_flat) -> TSDFVolume:

@@ -2,8 +2,8 @@
 
 - `flagship_config` / `load_inference_params`: the full-size
   conditional-generation model configurations and the weights a server
-  loads (a reference torch `.ckpt`, a numpy-leaf parameter pickle, or a
-  port training run);
+  loads (a reference torch `.ckpt`, a JAX parameter pickle, or a port
+  training run; a JAX orbax run raises the command that exports it);
 - `build_inference_step`: one conditional-generation step on an example
   batch (warp-conditioned encode -> nearest codeword or top-k draw ->
   decode -> metric depth);
@@ -18,7 +18,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import pickle
+import shlex
 import threading
 import time
 from dataclasses import replace
@@ -27,9 +27,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from sgam_neurips22_tpu_torch.core.checkpoint import CKPT_FILE, checkpoint_file
+from sgam_neurips22_tpu_torch.core.checkpoint import CKPT_FILE, checkpoint_file, orbax_run
 from sgam_neurips22_tpu_torch.core.device import resolve_device
-from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params, load_into, random_state_dict
+from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params, load_into, load_tree_pickle, random_state_dict
 from sgam_neurips22_tpu_torch.geometry.codec import get_codec
 from sgam_neurips22_tpu_torch.models.conditioning import get_x
 from sgam_neurips22_tpu_torch.models.vqgan.autoencoder import DDConfig
@@ -59,19 +59,6 @@ def flagship_config(dataset: str = "clevr-infinite", compute_dtype: str = "float
     return cfg
 
 
-class _NumpyTreeUnpickler(pickle.Unpickler):
-    """An unpickler that refuses JAX's classes: a parameter pickle whose
-    leaves are `jax.Array`s cannot be rebuilt without importing JAX, which
-    the port never does."""
-
-    def find_class(self, module: str, name: str):
-        if module.split(".")[0] in ("jax", "jaxlib"):
-            raise ValueError(
-                f"the pickle holds {module}.{name} objects (JAX arrays), which the port does not import JAX to "
-                "read; convert the tree's leaves to numpy first (tools/convert_checkpoint.py writes such a tree)")
-        return super().find_class(module, name)
-
-
 def load_inference_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a checkpoint into `model`, as the JAX package merges one:
 
@@ -82,29 +69,37 @@ def load_inference_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
       loss's `loss.*` and `perceptual_loss.*` tensors; every other tensor
       whose name and shape the model has replaces the model's, and the rest
       of the model keeps its weights (a non-strict load);
-    - a `.pkl` of the JAX package's parameter tree with numpy leaves (the
-      `init_vqmodel` layout): it replaces the weights wholesale, as the JAX
-      package's does, through the weight bridge (`from_jax_params`), and a
-      tree that does not fit the model raises. A pickle of `jax.Array`
-      leaves raises: the port does not import JAX.
+    - a `.pkl` of the JAX package's parameter tree (the `init_vqmodel`
+      layout, numpy or `jax.Array` leaves, which
+      `core.state_dict.load_tree_pickle` reads as numpy without importing
+      JAX): it replaces the weights wholesale, as the JAX package's does,
+      through the weight bridge (`from_jax_params`), and a tree that does
+      not fit the model raises.
 
     Checkpoints are unpickled whole, as the reference's loader does: load
-    only files you trust. The JAX trainer's orbax checkpoint directories
-    hold JAX pytrees in orbax's format and raise here (ROADMAP.md, queue
-    item 1.7)."""
+    only files you trust. A JAX trainer's orbax checkpoints (its run
+    directory, their `checkpoints/` or one step directory) hold JAX pytrees
+    in orbax's format, which the port reads only through a `.ckpt`: they
+    raise a ValueError whose text is the command that writes one
+    (`tools/export_torch_ckpt.py`), with the run's paths filled in."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     if os.path.isdir(path):
         ckpt = checkpoint_file(path)
         if ckpt is None:
-            raise NotImplementedError(
-                f"{path}: no port checkpoint (<step>/{CKPT_FILE}) here; the JAX package's orbax checkpoints hold "
-                "JAX parameter trees, which the port does not read (ROADMAP.md, queue item 1.7)")
+            run = orbax_run(path)
+            if run is not None:
+                run_dir, step = run
+                out = os.path.join(run_dir, "exported_last.ckpt")
+                cmd = f"python tools/export_torch_ckpt.py {shlex.quote(run_dir)} --out {shlex.quote(out)}"
+                if step is not None:
+                    cmd += f" --step {step}"
+                raise ValueError(f"{path} is a JAX orbax checkpoint, which the port reads as a .ckpt; from the "
+                                 f"repository root run: {cmd} (then load {out})")
+            raise FileNotFoundError(f"{path}: neither a port checkpoint (<step>/{CKPT_FILE}) nor a JAX orbax run")
         path = ckpt
     elif path.endswith(".pkl"):
-        with open(path, "rb") as f:
-            tree = _NumpyTreeUnpickler(f).load()
-        return load_into(model, from_jax_params(tree))
+        return load_into(model, from_jax_params(load_tree_pickle(path)))
     obj = torch.load(path, map_location="cpu", weights_only=False)
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     own = model.state_dict()
@@ -133,10 +128,12 @@ def build_inference_step(model_cfg: VQModelConfig, topk: int = 1, num_src: int =
     and depth in the model's depth range, the dataset's focal length of
     355.5555 at the image centre, identity rotations, zero translations.
     The generator is a `torch.Generator` on `device` seeded with 3 (JAX's
-    `PRNGKey(3)`, whose draws it cannot match bit for bit). JAX strips
-    `flash_attention` from the config for batch 1; the port's `AttnBlock`
-    already takes plain attention at batch 1, so nothing is stripped."""
+    `PRNGKey(3)`, whose draws it cannot match bit for bit). The step runs
+    at batch 1 with plain attention: as JAX's, it strips `flash_attention`
+    from the config, so that a training YAML's `true` does not leak into
+    serving."""
     dev = resolve_device(device)
+    model_cfg = replace(model_cfg, ddconfig=replace(model_cfg.ddconfig, flash_attention=None))
     codec = get_codec(model_cfg.dataset)
     model = VQModel(model_cfg)
     load_into(model, random_state_dict(model, 0))
@@ -174,7 +171,9 @@ class SceneServer:
     requests. One `InfiniteSceneGeneration` is kept and takes each
     request's seeds through `reset(seeds)` (under map re-query that also
     rebuilds the map). One lock serialises the device work: one unroll
-    owns the card, concurrent requests queue.
+    owns the card, concurrent requests queue. Each unroll is one scene at
+    batch 1 with plain attention (the generator strips the model's flash
+    field, as JAX's does).
 
     Args:
       model: a VQModel; the generator moves it to `device`.

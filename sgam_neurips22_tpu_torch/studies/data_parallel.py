@@ -83,10 +83,12 @@ def train_cfg(bs: int, kmeans: bool = False, yaml: str = YAML):
     return cfg
 
 
-def global_batch(bs: int, seed: int = 2, res: int = 256) -> dict:
+def global_batch(bs: int, seed: int = 2, res: int = 256, mixed: bool = False) -> dict:
     """chip_smoke.train_batch's conditional batch (n_src 2, res^2; 256^2 is
     chip_smoke's) as numpy arrays, the whole global batch: every rank draws
-    it and keeps its rows."""
+    it and keeps its rows. With `mixed`, the rows of the second half are of
+    another kind: flat walls (each row's images one colour, its depths one
+    value), so that two ranks' halves of the batch differ in kind."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -99,6 +101,13 @@ def global_batch(bs: int, seed: int = 2, res: int = 256) -> dict:
         "Ks": np.broadcast_to(k, (bs, n, 3, 3)), "R_rels": np.broadcast_to(np.eye(3), (bs, n, 3, 3)),
         "t_rels": np.zeros((bs, n, 3)), "src_masks": np.ones((bs, n)),
     }
+    if mixed:
+        flat = slice(bs // 2, bs)
+        colour, depth = rng.uniform(-1, 1, (bs - bs // 2, 3)), rng.uniform(8, 14, bs - bs // 2)
+        arrays["dst_img"][flat] = colour[:, None, None, :]
+        arrays["src_imgs"][flat] = colour[:, None, None, None, :]
+        arrays["dst_depth"][flat] = depth[:, None, None]
+        arrays["src_depths"][flat] = depth[:, None, None, None]
     return {key: np.ascontiguousarray(v, np.float32) for key, v in arrays.items()}
 
 
@@ -212,11 +221,12 @@ def _sync(torch, device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_step(torch, np, cfg, bs: int, steps: int, device: str = "cuda", res: int = 256) -> dict:
+def run_step(torch, np, cfg, bs: int, steps: int, device: str = "cuda", res: int = 256, mixed: bool = False) -> dict:
     """One rank's share of the data-parallel step (or a plain process's):
-    the seeded state, this rank's rows of the global batch, a first step
-    (its record on rank 0), then `steps` timed steps and one profiled step
-    where `steps` > 0. On the card; `device="cpu"` rehearses it there."""
+    the seeded state, this rank's rows of the global batch (`global_batch`,
+    `mixed` as there), a first step (its record on rank 0), then `steps`
+    timed steps and one profiled step where `steps` > 0. On the card;
+    `device="cpu"` rehearses it there."""
     from sgam_neurips22_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from sgam_neurips22_tpu_torch.training.lpips import random_lpips
     from sgam_neurips22_tpu_torch.training.train_step import create_train_state, split_params, train_step
@@ -227,7 +237,7 @@ def run_step(torch, np, cfg, bs: int, steps: int, device: str = "cuda", res: int
     t0 = time.perf_counter()
     state = create_train_state(cfg, seed=SEED, device=mesh.device)
     lpips = random_lpips(SEED + 2).to(mesh.device)
-    batch = shard_batch({k: torch.from_numpy(v) for k, v in global_batch(bs, res=res).items()}, mesh)
+    batch = shard_batch({k: torch.from_numpy(v) for k, v in global_batch(bs, res=res, mixed=mixed).items()}, mesh)
     setup_s = time.perf_counter() - t0
     w0 = {n: host(p) for n, p in split_params(state.model, cfg.phase)[0]}
     if on_card:
@@ -304,7 +314,8 @@ def planted(fault):
 def rank_rehearsal(spec: dict) -> None:
     """A rank of two gloo ranks on one card (chip_smoke's
     dp_two_ranks_one_card and scenes_sharded): the conditional YAML's step
-    with the k-means bookkeeping on, at spec["bs"] global rows; the first
+    with the k-means bookkeeping on, at spec["bs"] global rows
+    (`global_batch`, with spec["mixed"] its halves of two kinds); the first
     step's record (rank 0), a second step, a k-means refresh of REFRESHED
     codewords drawn from a generator of this rank's own seed, and the
     checksum of every tensor; then the first step again under each planted
@@ -330,7 +341,8 @@ def rank_rehearsal(spec: dict) -> None:
     state = create_train_state(cfg, seed=SEED, device=mesh.device)
     init = {k: v.detach().clone() for k, v in state_tensors(state).items()}
     lpips = random_lpips(SEED + 2).to(mesh.device)
-    batch = shard_batch({k: torch.from_numpy(v) for k, v in global_batch(spec["bs"], res=spec.get("res", 256)).items()},
+    batch = shard_batch({k: torch.from_numpy(v) for k, v in
+                         global_batch(spec["bs"], res=spec.get("res", 256), mixed=spec.get("mixed", False)).items()},
                         mesh)
     w0 = {n: host(p) for n, p in split_params(state.model, cfg.phase)[0]}
     rec = {"rank": mesh.rank, "backend": torch.distributed.get_backend(), "device": str(mesh.device)}
@@ -391,30 +403,37 @@ def scene_gen(model, grid, seeds_batch, map_mode: bool):
 def sharded_scenes(torch, np, spec: dict, mesh) -> dict:
     """The scene-sharded unrolls of one rank (every rank of `mesh` calls
     it): for each case of spec["cases"] (name -> (dtype, grid, map mode,
-    profiled, frames kept)), scene_expansion_batched of spec["seeds"] over
-    the mesh (after a warm-up call where profiled), its seconds, the gathered frames
-    (rank 0, to the CPU, where kept), this rank's idle share from a profile
-    of one more call where profiled, and under map re-query this rank's
-    per-scene telemetry and the stats summed over the ranks."""
+    profiled, frames kept[, scenes])), scene_expansion_batched of
+    spec["seeds"] (its first `scenes`, where given) over the mesh (after a
+    warm-up call where profiled), its seconds, this rank's kernel launches,
+    the gathered frames (rank 0, to the CPU, where kept), this rank's idle
+    share from a profile of one more call where profiled, and under map
+    re-query this rank's per-scene telemetry and the stats summed over the
+    ranks."""
     import chip_smoke
 
     out = {}
     models = {}
-    for name, (dtype, grid, map_mode, profiled, keep) in spec["cases"].items():
+    fns = counters()
+    for name, (dtype, grid, map_mode, profiled, keep, *scenes) in spec["cases"].items():
+        seeds = spec["seeds"][:scenes[0]] if scenes else spec["seeds"]
         if dtype not in models:
             models[dtype] = flagship_model(dtype)
-        gen = scene_gen(models[dtype], tuple(grid), spec["seeds"], map_mode)
-        run = lambda: gen.scene_expansion_batched(spec["seeds"], mesh=mesh)  # noqa: E731
+        gen = scene_gen(models[dtype], tuple(grid), seeds, map_mode)
+        run = lambda: gen.scene_expansion_batched(seeds, mesh=mesh)  # noqa: E731
         if profiled:
             run()  # warm-up: cuDNN's plans, the plan's upload
         torch.cuda.synchronize()
+        for fn in fns:
+            fn.launches = 0
         t0 = time.perf_counter()
         rgb, depth = run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        frames = (gen.grid.size - 1) * len(spec["seeds"])
+        frames = (gen.grid.size - 1) * len(seeds)
         res = {"seconds": dt, "frames": frames, "aggregate_ms_per_frame": dt / frames * 1e3,
-               "frames_per_scene": gen.grid.size - 1, "scenes_here": len(spec["seeds"]) // mesh.size,
+               "frames_per_scene": gen.grid.size - 1, "scenes_here": len(seeds) // mesh.size,
+               "launches": {fn.__name__: fn.launches for fn in fns},
                "finite": bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())}
         if map_mode:
             tel = chip_smoke.batched_pool_telemetry(np, gen)

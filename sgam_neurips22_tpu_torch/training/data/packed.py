@@ -8,7 +8,9 @@ pair-dataset frame store), decoded once at pack time; the repository's
 threads, called as it is through ctypes. Batches equal `CodebookDataset`'s
 bit for bit (the assembler applies the same `v / 127.5 - 1` float32 ops).
 The JAX package's `tools/pack_dataset.py` writes shards in this format,
-and so do `ShardWriter` and `write_shard` here.
+and so do `ShardWriter`, `write_shard`, `pack_split` and
+`pack_pair_frames` here (the CLI: `python -m
+sgam_neurips22_tpu_torch.pack_dataset`).
 """
 from __future__ import annotations
 
@@ -289,6 +291,32 @@ class PackedFrameStore:
             self.close()
         except Exception:
             pass
+
+
+def pack_split(ds, out_path: str, use_depth: bool) -> None:
+    """Pack a codebook-phase dataset (`CodebookDataset`) into one SGPK shard,
+    as the JAX package's tools/pack_dataset.py does, record by record:
+    RGB as the loader's uint8 (LANCZOS-resized where the PNG's size differs
+    from the dataset's resolution) and, with `use_depth`, the disparity
+    channel (depth resized, CLEVR's ray depth to z where the dataset
+    converts it, then encoded), so that the shard's examples are the PNG
+    path's, bit for bit."""
+    from sgam_neurips22_tpu_torch.training.data.io import encode_disparity_np, load_depth, load_rgb_u8, ray_to_z_np
+
+    wr = ShardWriter(out_path, has_depth=use_depth)
+    for i in range(len(ds)):
+        rgb_path = ds.paths[i]
+        disp = None
+        if use_depth:
+            depth = load_depth(ds._depth_path(rgb_path), ds.image_resolution)
+            if ds.convert_depth and ds.K is not None:
+                depth = ray_to_z_np(depth, ds.K)
+            disp = encode_disparity_np(depth, ds.dataset)
+        wr.add(load_rgb_u8(rgb_path, ds.image_resolution), disp)
+        if (i + 1) % 500 == 0:
+            print(f"  {i + 1}/{len(ds)}", flush=True)
+    wr.close()
+    print(f"wrote {out_path}: {len(ds)} records, {os.path.getsize(out_path) / 1e6:.1f} MB")
 
 
 def pack_pair_frames(ds, out_path: str) -> None:

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import json
 import os
-import pickle
 import time
 from dataclasses import replace
 from typing import Any, Dict, Optional
@@ -36,7 +35,7 @@ import torch
 
 from sgam_neurips22_tpu_torch.core.checkpoint import CheckpointManager, critical_section, install_signal_checkpoint
 from sgam_neurips22_tpu_torch.core.config import ConfigDict, save_yaml
-from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params, load_into
+from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params, load_into, load_tree_pickle
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModelConfig
 from sgam_neurips22_tpu_torch.parallel import distributed
 from sgam_neurips22_tpu_torch.parallel.distributed import barrier, is_primary, replicate_global, shard_local_batch
@@ -144,9 +143,9 @@ class Trainer:
             print(f"warm-started model weights from {ckpt_path}")
 
         if lpips_weights and os.path.exists(lpips_weights):
-            # an init_lpips-layout tree of numpy arrays (tools/convert_lpips.py)
-            with open(lpips_weights, "rb") as f:
-                self.lpips = load_into(LPIPS(), from_jax_params(pickle.load(f)))
+            # an init_lpips-layout tree of numpy or jax.Array leaves (the port's
+            # convert_lpips, or tools/convert_lpips.py), read without JAX
+            self.lpips = load_into(LPIPS(), from_jax_params(load_tree_pickle(lpips_weights)))
             print(f"loaded LPIPS weights from {lpips_weights}")
         else:
             self.lpips = random_lpips(1)

@@ -1,9 +1,9 @@
 """The PyTorch port's flash attention on the CPU, where the wrapper runs its
 plain version: against the JAX Pallas kernel (interpret mode) for the output
 and the row logsumexp, through the port's AttnBlock (which takes the flash
-path at batch >= 2) against the JAX `attn_block(..., flash=True)`, and
-through the TINY VQModel at batch 2 against the JAX forward with
-`DDConfig.flash_attention=True`."""
+path where its config or its caller asks for it) against the JAX
+`attn_block(..., flash=True)`, and through the TINY VQModel at batch 2
+against the JAX forward with `DDConfig.flash_attention=True`."""
 import dataclasses
 
 import jax
@@ -71,15 +71,17 @@ def test_wrapper_rejects_bad_inputs():
 
 @torch.inference_mode()
 def test_attn_block_flash_matches_plain_and_jax(monkeypatch):
-    """The flash path of the port's AttnBlock (batch 2) and its plain path
-    (each image alone, batch 1) agree at atol 1e-5, and the flash path
-    matches the JAX attn_block(flash=True) (Pallas in interpret mode) at
-    atol 2e-5, on weights carried across by the bridge."""
+    """The flash path of the port's AttnBlock (built with flash on, batch 2)
+    and its plain path (the call's flash=False override, each image alone
+    at batch 1) agree at atol 1e-5, and the flash path matches the JAX
+    attn_block(flash=True) (Pallas in interpret mode) at atol 2e-5, on
+    weights carried across by the bridge. A block built without flash
+    takes the plain path at batch 2 too."""
     c = 64
     rng = np.random.default_rng(11)
     p = to_numpy_tree(init_attn_block(jax.random.PRNGKey(1), c))
     p["norm"] = {"weight": rng.uniform(0.5, 1.5, c).astype(np.float32), "bias": rng.normal(size=c).astype(np.float32)}
-    block = AttnBlock(c)
+    block = AttnBlock(c, flash=True)
     load_into(block, from_jax_params(p))
     x = rng.normal(size=(2, 8, 8, c)).astype(np.float32)  # NHWC, 64 tokens
     x_nchw = t(x).permute(0, 3, 1, 2)
@@ -87,7 +89,11 @@ def test_attn_block_flash_matches_plain_and_jax(monkeypatch):
     monkeypatch.setattr(attention, "flash_attention", lambda *a: calls.append(a[0].shape) or flash_attention(*a))
     flash = block(x_nchw).permute(0, 2, 3, 1).numpy()
     assert calls == [(2, 64, c)]
-    plain = np.concatenate([block(x_nchw[i:i + 1]).permute(0, 2, 3, 1).numpy() for i in range(2)])
+    plain = np.concatenate([block(x_nchw[i:i + 1], flash=False).permute(0, 2, 3, 1).numpy() for i in range(2)])
+    assert len(calls) == 1
+    off = AttnBlock(c)
+    load_into(off, from_jax_params(p))
+    np.testing.assert_allclose(off(x_nchw).permute(0, 2, 3, 1).numpy(), plain, atol=1e-5, rtol=0)
     assert len(calls) == 1
     ref = np.asarray(j_attn_block(jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, p), flash=True))
     np.testing.assert_allclose(flash, plain, atol=1e-5, rtol=0)
@@ -104,7 +110,7 @@ def test_tiny_forward_with_flash_matches_jax():
     rng = np.random.default_rng(12)
     x = rng.uniform(-1, 1, (2, 32, 32, 4)).astype(np.float32)
     mask = rng.random((2, 32, 32, 1)) < 0.3
-    res = port_model(params, TINY)(t(x), extrapolation_mask=t(mask), topk=1)
+    res = port_model(params, jcfg)(t(x), extrapolation_mask=t(mask), topk=1)
     ref = j_forward(params, jcfg, jnp.asarray(x), extrapolation_mask=jnp.asarray(mask), topk=1,
                     rng=jax.random.PRNGKey(0))
     np.testing.assert_array_equal(res.indices.numpy(), np.asarray(ref.indices))

@@ -23,7 +23,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True))
 # JAX DDConfig fields the port has no field for: the port picks flash
 # attention by batch, and the other three must hold these values
-PORT_ABSENT_DD = {"flash_attention", "double_z", "dropout", "resamp_with_conv"}
+PORT_ABSENT_DD = {"double_z", "dropout", "resamp_with_conv"}
 
 
 def test_configs_found():

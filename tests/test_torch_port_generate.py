@@ -205,7 +205,7 @@ def test_load_inference_params(assets, tmp_path):
         pickle.dump({}, f)
     with pytest.raises(KeyError, match="missing"):
         load_inference_params(str(tmp_path / "params.pkl"), fresh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="neither a port checkpoint"):
         load_inference_params(str(tmp_path), fresh)
     with pytest.raises(FileNotFoundError):
         load_inference_params(str(tmp_path / "missing.ckpt"), fresh)

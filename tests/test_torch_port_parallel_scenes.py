@@ -9,11 +9,16 @@ that the tier-1 run's workers share the load):
   tests/test_torch_port_batched.py (rgb atol 1e-5, depth atol 1e-4 + rtol
   1e-5) and against the port's unsharded run within 1e-6, the bound of
   JAX's own sharded test (tests/test_pipeline.py);
+- splat, 2 scenes over 2 ranks (one a rank): each rank runs the flash
+  path in every attention block, as the whole batch of 2 does; its frames
+  match JAX's mesh run and the port's unsharded run at the same gates, and
+  are bit-equal to each scene unrolled alone with flash on (a rank's own
+  computation). The unsharded run's bound of 1e-6 does not hold here: the
+  CPU's convolutions round differently at batch 1 and 2 (1.5e-6 in one
+  3x3 conv, 5e-6 in the TINY model's output, with either attention path);
 - the same at topk 4 from one generator seed: every scene's draws are the
   unsharded run's, so the frames agree within 1e-6;
-- map re-query, 2 scenes over 2 ranks (4 with the TINY model, so that
-  each rank runs it at batch >= 2 and takes the flash path, as the
-  unsharded batch does): with the identity model on a 2 x 1 grid (JAX's
+- map re-query, 2 scenes over 2 ranks (4 with the TINY model, 2 a rank): with the identity model on a 2 x 1 grid (JAX's
   op-by-op map takes 24 s on 2 x 2; as
   tests/test_torch_port_map_batched.py, JAX run op by op) every frame and
   each rank's volume (its scene's slice of the grid and cell counts)
@@ -73,6 +78,7 @@ def _seeds(n, seed):
 
 CASES = {  # name -> (SceneGenConfig kwargs, scenes, identity model, generator seed)
     "splat": (SPLAT, _seeds(4, 9), False, None),
+    "splat_one_a_rank": (SPLAT, _seeds(2, 9), False, None),
     "splat_topk": (dict(SPLAT, topk=4), _seeds(4, 9), False, 5),
     "map_identity": (dict(MAP, output_dim=(2, 1)), _seeds(2, 21), True, None),
     "map": (MAP, _seeds(4, 21), False, None),
@@ -137,6 +143,25 @@ def test_splat_sharded_matches_jax_mesh_and_unsharded(sharded):
     np.testing.assert_allclose(out["rgb"].numpy(), rgb.numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(out["depth"].numpy(), depth.numpy(), atol=1e-6, rtol=1e-6)
     assert not torch.equal(out["rgb"][0, 1], out["rgb"][2, 1])
+
+
+def test_one_scene_a_rank_takes_flash_and_matches_jax_mesh(sharded):
+    params, ranks = sharded
+    kw, seeds, _, _ = CASES["splat_one_a_rank"]
+    out = _same_on_every_rank(ranks, "splat_one_a_rank")
+    assert tuple(out["rgb"].shape) == (2, 4, H, W, 3)
+    rgb, depth, gen = _port_unsharded(params, kw, seeds, False, None)
+    for r in range(RANKS):  # TINY's 5 attention blocks, each step, at batch 1 in each rank
+        assert ranks[r]["splat_one_a_rank"]["flash_calls"] == 5 * len(gen.build_plan()["tgt"])
+    j_rgb, j_depth, _ = _jax_sharded(params, kw, seeds, False)
+    for ref_rgb, ref_depth in ((j_rgb, j_depth), (rgb.numpy(), depth.numpy())):
+        np.testing.assert_allclose(out["rgb"].numpy(), ref_rgb, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out["depth"].numpy(), ref_depth, atol=1e-4, rtol=1e-5)
+    with torch.inference_mode():
+        for s, seed in enumerate(seeds):
+            alone = gen._expand_batched([seed], None, flash=True)
+            assert torch.equal(out["rgb"][s], alone[0][0]) and torch.equal(out["depth"][s], alone[1][0])
+    assert not torch.equal(out["rgb"][0, 1], out["rgb"][1, 1])
 
 
 def test_topk_sharded_draws_the_unsharded_noise(sharded):

@@ -268,7 +268,10 @@ def test_http_api(served, tmp_path):
 def test_load_inference_params_reads_numpy_pickle(tmp_path):
     """A .pkl of a JAX init_vqmodel tree with numpy leaves loads through the
     weight bridge (every tensor replaced); a tree that does not fit raises;
-    a pickle of jax.Array leaves raises without importing JAX."""
+    a pickle of jax.Array leaves is read as numpy without importing JAX
+    (here a tree that does not fit, so the bridge's KeyError shows that it
+    was read), and a pickle of another JAX object raises without importing
+    JAX, naming the port's converter."""
     params = to_numpy_tree(init_vqmodel(jax.random.PRNGKey(4), TINY))
     with open(tmp_path / "params.pkl", "wb") as f:
         pickle.dump(params, f)
@@ -283,15 +286,19 @@ def test_load_inference_params_reads_numpy_pickle(tmp_path):
         load_inference_params(str(tmp_path / "partial.pkl"), model)
     with open(tmp_path / "jax.pkl", "wb") as f:
         pickle.dump({"conv_in": {"w": jax.numpy.zeros(2)}}, f)
-    code = ("import sys, torch; from sgam_neurips22_tpu_torch.serving import load_inference_params;"
-            "from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel;"
-            "from sgam_neurips22_tpu_torch.serving import flagship_config\n"
-            "try:\n load_inference_params(sys.argv[1], torch.nn.Linear(1, 1))\n"
-            "except ValueError as e:\n print('jax' in sys.modules, e)\n")
-    r = subprocess.run([sys.executable, "-c", code, str(tmp_path / "jax.pkl")], cwd=REPO, capture_output=True,
-                       text=True, timeout=120)
+    with open(tmp_path / "jax_object.pkl", "wb") as f:
+        pickle.dump({"conv_in": {"w": jax.tree_util.tree_map}}, f)
+    code = ("import sys, torch; from sgam_neurips22_tpu_torch.serving import load_inference_params\n"
+            "for path in sys.argv[1:]:\n"
+            " try:\n  load_inference_params(path, torch.nn.Linear(1, 1))\n"
+            " except (KeyError, ValueError) as e:\n  print('jax' in sys.modules, type(e).__name__, e)\n")
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path / "jax.pkl"), str(tmp_path / "jax_object.pkl")],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert r.stdout.startswith("False ") and "JAX arrays" in r.stdout
+    read, refused = r.stdout.splitlines()
+    assert read.startswith("False KeyError") and "conv_in.w" in read
+    assert refused.startswith("False ValueError") and "jax.tree_util.tree_map" in refused
+    assert "sgam_neurips22_tpu_torch.convert_lpips" in refused
 
 
 def test_serve_cli_builds_the_server(monkeypatch, tmp_path, capsys, jax_params):

@@ -97,8 +97,9 @@ def test_flagship_config_matches_jax(dataset, dtype):
     """Every field of the port's flagship_config(dataset, compute_dtype)
     (VQModelConfig and its DDConfig) equals the same-named field of JAX's,
     and JAX's DDConfig fields that the port does not have hold the values
-    the port hard-codes (no dropout, no double_z; flash attention chosen by
-    the port's AttnBlock from the batch size). Every VQModelConfig field of
+    the port hard-codes (no dropout, no double_z); flash_attention is a
+    field of both since the port chooses attention by config, as JAX
+    does. Every VQModelConfig field of
     JAX's is the port's too (use_extrapolation_mask and vq_step_threshold
     since the trainer slice)."""
     import dataclasses
@@ -106,7 +107,7 @@ def test_flagship_config_matches_jax(dataset, dtype):
     got, want = flagship_config(dataset, dtype), j_flagship_config(dataset, dtype)
     only_jax = {
         "model": {},
-        "ddconfig": {"dropout": 0.0, "resamp_with_conv": True, "double_z": False, "flash_attention": None},
+        "ddconfig": {"dropout": 0.0, "resamp_with_conv": True, "double_z": False},
     }
     for part, ours, theirs in (("model", got, want), ("ddconfig", got.ddconfig, want.ddconfig)):
         names = {f.name for f in dataclasses.fields(ours)}

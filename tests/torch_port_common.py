@@ -34,6 +34,7 @@ def port_config(cfg: VQModelConfig) -> t_model.VQModelConfig:
             attn_resolutions=tuple(dd.attn_resolutions),
             in_channels=dd.in_channels, resolution=dd.resolution,
             z_channels=dd.z_channels, remat=dd.remat, compute_dtype=dd.compute_dtype,
+            flash_attention=dd.flash_attention,
         ),
         n_embed=cfg.n_embed, embed_dim=cfg.embed_dim, phase=cfg.phase, beta=cfg.beta,
         dataset=cfg.dataset, depth_range=cfg.depth_range,

@@ -125,17 +125,22 @@ class IndexDataset:
 
 def scenes(spec_path: str, out_dir: str) -> None:
     """scene_expansion_batched over the ranks' mesh for each case of the
-    spec: (rgb, depth, the batched volume's stats)."""
+    spec: (rgb, depth, the batched volume's stats, this rank's calls of the
+    flash attention)."""
     assert "jax" not in sys.modules
     import warnings
 
     from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel
+    from sgam_neurips22_tpu_torch.ops import attention
     from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration
 
     spec = torch.load(spec_path, weights_only=False)
     mesh = make_mesh(device="cpu")
+    flash, calls = attention.flash_attention, []
+    attention.flash_attention = lambda *a: calls.append(1) or flash(*a)
     out = {}
     for name, case in spec.items():
+        calls.clear()
         model = VQModel(case["model_cfg"])
         model.load_state_dict(case["weights"])
         with warnings.catch_warnings():
@@ -153,7 +158,8 @@ def scenes(spec_path: str, out_dir: str) -> None:
         vol = gen.batched_volume
         out[name] = {"rgb": rgb.clone(), "depth": depth.clone(),
                      "stats": None if vol is None else vol.stats.clone(),
-                     "volume": None if vol is None else {f: getattr(vol, f).clone() for f in case.get("fields", ())}}
+                     "volume": None if vol is None else {f: getattr(vol, f).clone() for f in case.get("fields", ())},
+                     "flash_calls": len(calls)}
     torch.save(out, _rank_file(out_dir, "scenes"))
 
 
