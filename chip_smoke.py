@@ -46,9 +46,9 @@ the device's idle share):
 - unroll_tsdf, unroll_tsdf_ge, unroll_tsdf_ge_coherent: map re-query in
   bf16 (`use_rgbd_integration`, the auto-sized TSDF volume): bench.py
   --config integration (clevr-infinite, 3x3, 8 frames, 5 sources, seed
-  depth U(8, 14)); google_earth --rgbd_integration on its 25 x 1
-  trajectory (24 frames, cut from 100; 3 sources, codebook 4096, a pool
-  of 2^20 slots that recycles); and the same with coherent_plane_depth
+  depth U(8, 14)); google_earth --rgbd_integration on a 13 x 1
+  trajectory (GE_MAP_FRAMES = 12 frames, cut from 100; 3 sources, codebook
+  4096, a pool of 2^20 slots); and the same with coherent_plane_depth
   (--coherent). Each checks finite frames and one z-buffer and one
   codeword launch a frame, reports the pool telemetry bench.py prints and
   the fused share of depth samples, times the map's functions alone
@@ -58,7 +58,8 @@ the device's idle share):
   CLEVR map phase with every second ray fused (--tsdf_stride 2), on a 2x2
   grid (3 frames, cut from 8 for time);
 - unroll_tsdf_batched: bench.py's batched_8_scenes_tsdf, map re-query for
-  8 scenes at once in bf16 (CLEVR 7x7, 48 frames a scene, 5 sources, one
+  8 scenes at once in bf16 (CLEVR 5x5, 24 frames a scene, cut from 7x7
+  and 48 for time, 5 sources, one
   batched volume of 8 maps): one z-buffer and one codeword launch and 7
   flash-attention launches a step, each scene's pool telemetry and the
   volume's bytes; the pool splat's input at its last frame is kept for the
@@ -78,7 +79,7 @@ the device's idle share):
   against CPU in f32 and bf16 (parity's and parity_bf16's gates) and the
   volume after it; then the z-buffer on the keys the pool splat built at
   the last frame of unroll_tsdf ([3, 204960]), unroll_tsdf_ge ([4, 262144])
-  and unroll_tsdf_batched ([24, 226464]), bit-exact on both routes, each
+  and unroll_tsdf_batched ([24, 215712] at 5x5), bit-exact on both routes, each
   route timed beside scatter_reduce;
 - generate: the port's CLI (`python -m sgam_neurips22_tpu_torch.generate`,
   its main) on the card from a seed template and a reference-layout .ckpt
@@ -96,6 +97,18 @@ the device's idle share):
   one codeword launch and no flash (the step strips the field), finite
   outputs, its time a call, and the same step on the CPU under parity's
   gates;
+- export_step: `export_aot.export_step` of the flagship clevr-infinite
+  step (f32, on the card) into a temporary directory, loaded in this
+  process (`load_step`): after a warm-up call one call launches the
+  z-buffer and codeword kernels once each and no flash attention, and
+  equals the eager step bit for bit; loaded again in a fresh process that
+  cannot import jax, the JAX package or the port's models, pipeline,
+  serving and training: the same launches, and its outputs within the
+  inference step's gates of the eager step (whether bit-equal is
+  reported); export, save and load seconds, the artifact's MB, ms a call
+  of the loaded program and of the eager step in turns (CUDA events), and
+  the host microseconds a z-buffer and a codeword call spends in the
+  custom op's dispatch (op_overhead);
 - serve: the serve CLI's server (`serve.build_server`, bf16, seeded random
   weights, CLEVR on serve.py's 5 x 5 example grid) behind
   `run_http_server` on 127.0.0.1, over HTTP: /healthz, /warmup, two
@@ -1420,8 +1433,9 @@ def parity_train_bf16(torch, np, failures, bs: int = 2, seed: int = SEED, batch_
 
 
 MAP_GRID = (3, 3)  # bench.py --config integration: 8 frames on a 3x3 grid
-MAP_BATCH_GRID = (7, 7)  # bench.py batched_8_scenes_tsdf: --frames 48 on a 7x7 grid
+MAP_BATCH_GRID = (5, 5)  # bench.py batched_8_scenes_tsdf (--frames 48 on a 7x7 grid), cut to 24 frames for time
 MAP_STRIDE2_GRID = (2, 2)  # integration_clevr_stride2, cut from 3x3 (8 frames) to 3 frames for time
+GE_MAP_FRAMES = 12  # google_earth's two map phases: a (GE_MAP_FRAMES + 1) x 1 trajectory, cut from 100 for time
 MAP_PARITY_FRAMES = 3  # generated frames that map_parity fuses after the seed
 
 
@@ -2095,7 +2109,8 @@ DATA_SCENES, DATA_FRAMES = 8, 18  # train split: 8 scenes x 18 frames (9 batches
 PAETH_EVERY = 2  # every second PNG of the dataset is hand-encoded with the Paeth filter
 # the codebook run's overrides besides dataset_dir: a buffer of 8 steps, full
 # after step 8, and a timeout of one step, so that the refresh fires at step 8
-# with every codeword batch element 0 did not use at step 7 inactive
+# with every codeword batch element 0 did not use at step 7 inactive (8 steps
+# of 256 latents are the fewest rows that k-means of 2048 codewords takes)
 CODEBOOK_MAX_STEPS = 8
 CODEBOOK_OVERRIDES = ("model.params.online_kmeans_config.train_feature_buffer_size=8",
                       "model.params.online_kmeans_config.frequency=8",
@@ -2925,6 +2940,184 @@ def inference_step_phase(torch, counters, failures) -> dict:
     return rep
 
 
+# the fresh process of export_step: load the artifact with the model code
+# unimportable, call it twice (warm-up, counted call), keep its outputs
+EXPORT_BLOCKED = ("jax", "jaxlib", "sgam_neurips22_tpu", "sgam_neurips22_tpu_torch.models",
+                  "sgam_neurips22_tpu_torch.pipeline", "sgam_neurips22_tpu_torch.serving",
+                  "sgam_neurips22_tpu_torch.training")
+EXPORT_LOAD_SIDE = """
+import sys
+
+
+class Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in {blocked!r}):
+            raise ImportError(f"{{name}} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import time
+import torch
+from sgam_neurips22_tpu_torch.export_aot import load_step
+from sgam_neurips22_tpu_torch.ops import attention, vq, zbuffer
+path, root = sys.argv[1:]
+t0 = time.perf_counter()
+step = load_step(path)
+load_s = time.perf_counter() - t0
+inputs = [x.cuda() for x in torch.load(root + "/inputs.pt")]
+step(*inputs)
+torch.cuda.synchronize()
+counters = (zbuffer.zbuffer_min, vq.nearest_codeword, attention.flash_attention_fwd, attention.flash_attention_dq,
+            attention.flash_attention_dkv)
+for f in counters:
+    f.launches = 0
+rgb, depth = step(*inputs)
+torch.cuda.synchronize()
+imported = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in {blocked!r})]
+torch.save({{"rgb": rgb.cpu(), "depth": depth.cpu(), "load_seconds": load_s, "imported": imported,
+            "launches": {{f.__name__: f.launches for f in counters}}}}, root + "/fresh.pt")
+"""
+OVERHEAD_CALLS, OVERHEAD_ROUNDS = 200, 5
+
+
+def op_overhead(torch) -> dict:
+    """Host microseconds a call at the flythrough's shapes (z-buffer pix,
+    key [1, 327680] over 256^2; codeword z [256, 256] against [16384,
+    256]): `direct`, straight into the op's CUDA implementation (the
+    launch path the wrapper called before the ops), and `op`, the public
+    wrapper through `torch.ops.sgam`, in turns (direct, op, op, direct) x
+    OVERHEAD_ROUNDS; each the host clock over OVERHEAD_CALLS calls after a
+    synchronize and before the next (the host, not the card, bounds these
+    loops). `op_us` is the median of op less that of direct."""
+    from sgam_neurips22_tpu_torch.ops import vq, zbuffer
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    pix = torch.randint(0, H * W, (1, 5 * H * W), generator=g, device="cuda", dtype=torch.int32)
+    key = torch.randint(0, 2**30, (1, 5 * H * W), generator=g, device="cuda", dtype=torch.int32)
+    z = torch.randn((256, 256), generator=g, device="cuda")
+    cb = torch.randn((16384, 256), generator=g, device="cuda")
+    calls = {"zbuffer_min": (lambda: zbuffer.zbuffer_min_cuda(pix, key, H, W),
+                             lambda: zbuffer.zbuffer_min(pix, key, H, W)),
+             "nearest_codeword": (lambda: vq.nearest_codeword_cuda(z, cb), lambda: vq.nearest_codeword(z, cb))}
+    out = {}
+    for name, (direct, op) in calls.items():
+        times = {"direct": [], "op": []}
+        for _ in range(OVERHEAD_ROUNDS):
+            for side, fn in (("direct", direct), ("op", op), ("op", op), ("direct", direct)):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(OVERHEAD_CALLS):
+                    fn()
+                times[side].append((time.perf_counter() - t0) / OVERHEAD_CALLS * 1e6)
+                torch.cuda.synchronize()
+        med = {side: float(sorted(v)[len(v) // 2]) for side, v in times.items()}
+        out[name] = {"direct_us": med["direct"], "op_us_total": med["op"], "op_us": med["op"] - med["direct"],
+                     "direct_us_all": times["direct"], "op_us_all": times["op"]}
+    zbuffer.zbuffer_min.launches = vq.nearest_codeword.launches = 0
+    return out
+
+
+def export_step_phase(torch, counters, failures) -> dict:
+    """`export_aot.export_step` of the flagship clevr-infinite step (f32,
+    256^2, 5 sources) on the card into a temporary directory (the
+    artifact, ~290 MB, is not kept), loaded in this process and in a fresh
+    one that cannot import EXPORT_BLOCKED, each called after a warm-up
+    call with its launches counted (one z-buffer, one codeword, no flash
+    attention). In-process the program must equal the eager step bit for
+    bit; the fresh process's outputs must meet inference_step_phase's
+    gates (RGB atol 1e-3, depth 1e-3 relative of max(depth, 1)) against the
+    eager step, and whether they are bit-equal is reported (cuDNN may pick
+    other algorithms in another process); the fresh process loads while
+    this one does, and ends before anything is timed. Also: export, load
+    and fresh seconds, the artifact's MB, the graph's calls (and its dtype asserts),
+    ms a call by CUDA events of the eager step, the loaded program and the
+    loaded program under inference mode (as the eager step runs) in turns,
+    the device time a call of the loaded program and of the eager step
+    (device_ms), and the custom ops' host overhead (op_overhead)."""
+    import tempfile
+
+    from sgam_neurips22_tpu_torch.export_aot import INPUTS, export_step, load_step
+    from sgam_neurips22_tpu_torch.serving import build_inference_step, flagship_config
+
+    cfg = flagship_config("clevr-infinite")
+    fn, (model, batch, gen) = build_inference_step(cfg, image_size=cfg.ddconfig.resolution * 4, device="cuda")
+    inputs = [batch[name] for name in INPUTS]
+    rgb_e, depth_e = fn(model, batch, gen)
+    torch.cuda.synchronize()
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship_step.pt2")
+        t0 = time.perf_counter()
+        exported = export_step(cfg, path, device="cuda")
+        rep["export_seconds"] = time.perf_counter() - t0
+        rep["artifact_mb"] = os.path.getsize(path) / 1e6
+        targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+        rep["graph_calls"] = len(targets)
+        rep["graph_metadata_asserts"] = targets.count("aten._assert_tensor_metadata.default")
+        del exported
+        torch.save([x.cpu() for x in inputs], os.path.join(tmp, "inputs.pt"))
+        # the fresh process loads while this one does (both mostly host
+        # work); it is done before anything here is timed
+        t_fresh = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", EXPORT_LOAD_SIDE.format(blocked=EXPORT_BLOCKED), path, tmp],
+                                cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            step = load_step(path)
+            rep["load_seconds"] = time.perf_counter() - t0
+            step(*inputs)  # warm-up
+            torch.cuda.synchronize()
+            for f in counters:
+                f.launches = 0
+            rgb, depth = step(*inputs)
+            torch.cuda.synchronize()
+            rep["launches"] = {f.__name__: f.launches for f in counters}
+            rep["bit_equal"] = bool(torch.equal(rgb, rgb_e) and torch.equal(depth, depth_e))
+            rep["finite"] = bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())
+            _, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        rep["fresh_seconds"] = time.perf_counter() - t_fresh
+        if proc.returncode != 0:
+            failures.append(f"export_step: the fresh process exited {proc.returncode}: {err[-3000:]}")
+            return rep
+        fresh = torch.load(os.path.join(tmp, "fresh.pt"))
+
+        def inference_mode_call():
+            with torch.inference_mode():
+                return step(*inputs)
+
+        calls = {"eager": lambda: fn(model, batch, gen), "exported": lambda: step(*inputs),
+                 "exported_inference_mode": inference_mode_call}
+        turns = {side: [] for side in calls}
+        for side in ("eager", "exported", "exported_inference_mode", "exported_inference_mode", "exported", "eager"):
+            turns[side].append(cuda_ms(torch, calls[side], iters=10, warmup=1))
+        rep.update(ms=sum(turns["exported"]) / 2, eager_ms=sum(turns["eager"]) / 2,
+                   inference_mode_ms=sum(turns["exported_inference_mode"]) / 2, ms_turns=turns,
+                   device_ms=device_ms(torch, calls["exported"], iters=5, warmup=1),
+                   eager_device_ms=device_ms(torch, calls["eager"], iters=5, warmup=1))
+        del step
+    rgb_c, depth_c = rgb_e.cpu(), depth_e.cpu()
+    rep["fresh"] = {"load_seconds": fresh["load_seconds"], "launches": fresh["launches"],
+                    "imported": fresh["imported"],
+                    "bit_equal": bool(torch.equal(fresh["rgb"], rgb_c) and torch.equal(fresh["depth"], depth_c)),
+                    "rgb_max_abs_err": float((fresh["rgb"] - rgb_c).abs().max()),
+                    "depth_max_rel_err": float(((fresh["depth"] - depth_c).abs() / depth_c.abs().clamp(min=1.0)).max())}
+    rep["op_overhead"] = op_overhead(torch)
+    f = rep["fresh"]
+    rep["ok"] = (rep["finite"] and rep["bit_equal"] and rep["launches"] == want_launches(1)
+                 and f["launches"] == want_launches(1) and not f["imported"] and f["rgb_max_abs_err"] <= 1e-3
+                 and f["depth_max_rel_err"] <= 1e-3)
+    if not rep["ok"]:
+        failures.append(f"export_step: {rep}")
+    return rep
+
+
 def http(method: str, port: int, path: str, body=None) -> tuple:
     """(status, JSON body, seconds) of one request to the local server."""
     import urllib.error
@@ -3136,8 +3329,8 @@ def evaluate_phase(torch, np, root: Path, gen_dir: str, failures) -> dict:
 
 
 def serving_phases(torch, np, counters, failures, card, paths: dict, report: dict) -> None:
-    """inference_step, serve, evaluate (on serve's export) and serve_map,
-    each emitted as it ends."""
+    """inference_step, export_step, serve, evaluate (on serve's export) and
+    serve_map, each emitted as it ends."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -3146,6 +3339,13 @@ def serving_phases(torch, np, counters, failures, card, paths: dict, report: dic
     paths["inference_step"] = step["launches"]
     report["inference_step"] = step
     emit({"phase": "inference_step", **step})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    exp = export_step_phase(torch, counters, failures)
+    exp.update(seconds=time.perf_counter() - t0, card=card)
+    paths["export_step"] = exp["launches"]
+    report["export_step"] = exp
+    emit({"phase": "export_step", **exp})
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -3406,24 +3606,24 @@ def main(argv=None) -> int:
     emit({"phase": "map_ms", "unroll_tsdf": tsdf_rep["map_ms"], "card": card})
 
     # 13. google_earth's map re-query at bf16 (bench.py --config google_earth
-    #     --rgbd_integration): 25 x 1, 24 frames (cut from 100), 3 sources,
-    #     codebook 4096, seed depth U(0.5, 4.0); its 2^20-slot pool recycles
+    #     --rgbd_integration): 13 x 1, GE_MAP_FRAMES frames (cut from 100), 3
+    #     sources, codebook 4096, seed depth U(0.5, 4.0), a 2^20-slot pool
     ge_seeds = seed_frames(np, rng, (0.5, 4.0))
-    gen_ge_map = InfiniteSceneGeneration(ge_model, map_config("google_earth", (FRAMES + 1, 1)), ge_seeds,
+    gen_ge_map = InfiniteSceneGeneration(ge_model, map_config("google_earth", (GE_MAP_FRAMES + 1, 1)), ge_seeds,
                                          device="cuda")
     ge_tsdf_rep, report["profile_unroll_tsdf_ge"], map_keys["map_google_earth_last_frame"] = map_phase(
-        torch, np, gen_ge_map, FRAMES, counters, failures, "unroll_tsdf_ge", card)
+        torch, np, gen_ge_map, GE_MAP_FRAMES, counters, failures, "unroll_tsdf_ge", card)
     paths["unroll_tsdf_ge"] = ge_tsdf_rep["launches"]
     grid_cases["map_google_earth_last_step"] = ge_tsdf_rep.pop("grid_inputs")
     emit({"phase": "unroll_tsdf_ge", **ge_tsdf_rep})
 
     # 14. the same with coherent_plane_depth: every frame's depth, the seed's
     #     too, is one world plane's (bench.py --coherent)
-    gen_coh = InfiniteSceneGeneration(ge_model, map_config("google_earth", (FRAMES + 1, 1), coherent=True), ge_seeds,
-                                      device="cuda")
+    gen_coh = InfiniteSceneGeneration(ge_model, map_config("google_earth", (GE_MAP_FRAMES + 1, 1), coherent=True),
+                                      ge_seeds, device="cuda")
     gen_coh.reset([((0, 0), ge_seeds[0][1], gen_coh.plane_depth_at(0))])
     coh_rep, report["profile_unroll_tsdf_ge_coherent"], _ = map_phase(
-        torch, np, gen_coh, FRAMES, counters, failures, "unroll_tsdf_ge_coherent", card)
+        torch, np, gen_coh, GE_MAP_FRAMES, counters, failures, "unroll_tsdf_ge_coherent", card)
     paths["unroll_tsdf_ge_coherent"] = coh_rep["launches"]
     del coh_rep["grid_inputs"]
     emit({"phase": "unroll_tsdf_ge_coherent", **coh_rep})
@@ -3446,7 +3646,8 @@ def main(argv=None) -> int:
 
     # 14c. map re-query for SCENES scenes at once at bf16 (bench.py's
     #      batched_8_scenes_tsdf: --batch_scenes 8 --frames 48
-    #      --rgbd_integration): CLEVR 7x7, 5 sources, each scene its own
+    #      --rgbd_integration; MAP_BATCH_GRID, cut from 7x7): CLEVR 5x5, 5
+    #      sources, each scene its own
     #      seed frame (depth U(8, 14)), their maps in one batched volume
     t0 = time.perf_counter()
     gen_mb = InfiniteSceneGeneration(gen_map.model, map_config("clevr-infinite", MAP_BATCH_GRID), seeds,

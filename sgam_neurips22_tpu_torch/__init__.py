@@ -19,9 +19,15 @@ behind the CLI `python -m sgam_neurips22_tpu_torch.generate`; the
 two-optimizer GAN training step (`training.train_step`) and the trainer
 around it (`training.trainer`: YAML configs, datasets and loader,
 checkpoints, online k-means, gradient accumulation, the LR schedule)
-behind `python -m sgam_neurips22_tpu_torch.train`, on one device; with
-hand-written CUDA kernels for the z-buffer merge (`ops.zbuffer`), the
-codeword search (`ops.vq`) and the flash attention forward and backward
-(`ops.attention`). Entry points run on `cuda` unless the caller passes
-`device="cpu"`.
+behind `python -m sgam_neurips22_tpu_torch.train`, on one device or on
+several (`parallel`); serving (`serving`: the inference step, a resident
+scene server and its HTTP daemon, `python -m
+sgam_neurips22_tpu_torch.serve`) and offline evaluation (`evaluate`); the
+AOT export of the inference step (`export_aot`: `torch.export` of the step
+with its weights, reloaded without the model code); with hand-written
+CUDA kernels for the z-buffer merge (`ops.zbuffer`), the codeword search
+(`ops.vq`), the flash attention forward and backward (`ops.attention`) and
+the map's grid accumulation (`ops.grid_accumulate`), each a
+`torch.library` custom op (`ops.library`, `torch.ops.sgam.*`). Entry
+points run on `cuda` unless the caller passes `device="cpu"`.
 """

@@ -129,11 +129,13 @@ class VQModel(nn.Module):
         return self.decoder.conv_out.weight
 
     def forward(self, x, extrapolation_mask=None, topk=None, sample_number=1, generator=None,
-                topk_position0_bug=False, flash=None):
+                topk_position0_bug=False, flash=None, gumbel=None):
         """Encode -> quantise (topk None) or sample (`quantize_topk`, with
-        the mask and `generator` as JAX passes its mask and rng) -> decode;
-        NHWC in and out. With topk, each of the `sample_number` latents is
-        decoded (folded into the batch) and xrec is [B, S, H, W, out_ch].
+        the mask and `generator` as JAX passes its mask and rng, or with
+        the Gumbel noise `gumbel` [P, sample_number, topk] itself, as an
+        exported step takes it) -> decode; NHWC in and out. With topk,
+        each of the `sample_number` latents is decoded (folded into the
+        batch) and xrec is [B, S, H, W, out_ch].
         The attention blocks take `ddconfig.flash_attention`'s path, or
         `flash`'s where it is not None (JAX swaps the model config)."""
         pre_quant = self.encode_prequant(x, extrapolation_mask, flash)
@@ -141,7 +143,7 @@ class VQModel(nn.Module):
             q = quantize(self.codebook, pre_quant, self.cfg.beta)
             return ForwardResult(self.decode(q.z_q, flash), q.loss, q.indices, pre_quant, q.z_q)
         s = quantize_topk(self.codebook, pre_quant, topk, sample_number, extrapolation_mask,
-                          position0_bug=topk_position0_bug, generator=generator)
+                          position0_bug=topk_position0_bug, generator=generator, gumbel=gumbel)
         b, n = s.z_q.shape[:2]
         xrec = self.decode(s.z_q.reshape(b * n, *s.z_q.shape[2:]), flash)
         xrec = xrec.reshape(b, n, *xrec.shape[1:])

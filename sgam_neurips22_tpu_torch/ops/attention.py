@@ -7,13 +7,20 @@ every device, as the JAX `flash_attention` carries its custom VJP: the
 forward saves (q, k, v, out, lse) and the backward recomputes the
 probabilities from the row logsumexp.
 
+The three kernels are the custom ops `torch.ops.sgam.flash_attention_fwd`,
+`flash_attention_dq` and `flash_attention_dkv` (`ops/library.py`), which
+the wrappers of those names call; each op's CUDA implementation (`*_cuda`
+below) launches its kernel and counts the launch on its wrapper, and its
+CPU implementation is the plain version.
+
 - `flash_attention_fwd` launches `csrc/flash_attention_fwd.cu` for CUDA
   tensors (replaces `sgam_neurips22_tpu/ops/attention_pallas.py::
   _flash_fwd_impl`; 3xTF32 on the tensor cores, with a tile of 64 query
   rows, 32 at C = 512, or 16 where the larger tile leaves SMs idle:
   `flash_attention_fwd_block_rows`) and runs `flash_attention_plain` for
   CPU tensors. Both scale q by 1/sqrt(C) before the dot, as the TPU kernel
-  does.
+  does. Its op also carries an autograd formula (`flash_attention_bwd`,
+  with lse's gradient), for callers of the op itself.
 - `flash_attention_bwd` launches two kernels for CUDA tensors,
   `flash_attention_dq` (`csrc/flash_attention_dq.cu`, replacing
   `_dq_kernel`) and `flash_attention_dkv` (`csrc/flash_attention_dkv.cu`,
@@ -58,11 +65,14 @@ def _check(name: str, *xs: torch.Tensor) -> None:
         raise ValueError(f"{name}: tensors on {[str(x.device) for x in xs]}")
 
 
+def _on_card(name: str, q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+
+
 def _kernel_inputs(name: str, xs) -> None:
     """What the CUDA kernels take: C in KERNEL_CHANNELS, contiguous, 16-byte aligned."""
-    dev = xs[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
+    _on_card(name, xs[0])
     c = xs[0].shape[-1]
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"{name}: the kernel takes C in {KERNEL_CHANNELS}, got {c}")
@@ -87,8 +97,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
       (out [B, S, C], lse [B, S]) with lse the row logsumexp of q k^T / sqrt(C).
     """
     _check("flash_attention_fwd", q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+    if q.device.type != "cpu":
+        _on_card("flash_attention_fwd", q)
+    return torch.ops.sgam.flash_attention_fwd(q, k, v)
+
+
+def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The op's CUDA implementation: one launch of `flash_fwd_kernel`,
+    counted in `flash_attention_fwd.launches`."""
+    _check("flash_attention_fwd", q, k, v)
     _kernel_inputs("flash_attention_fwd", (q, k, v))
     b, s, c = q.shape
     out = torch.empty_like(q)
@@ -137,13 +154,20 @@ def flash_attention_dkv_plain(q, k, v, dout, lse, dd):
     return (1.0 / q.shape[-1] ** 0.5) * torch.bmm(ds.transpose(1, 2), q), torch.bmm(p.transpose(1, 2), dout)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, dout):
+def _row_term(out, dout, dlse):
+    """D = rowsum(dO * O), less lse's upstream gradient where there is one
+    (d lse / d logits = P, so it enters dS as -D does)."""
+    dd = (dout * out).sum(dim=-1)
+    return dd if dlse is None else dd - dlse
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse=None):
     """Plain PyTorch version of the backward, with [B, S, S] tensors:
-    logits = scale * (q k^T), P = exp(logits - lse), D = rowsum(dO * O),
-    dS = P * (dO v^T - D), dq = scale * dS k, dk = scale * dS^T q,
+    logits = scale * (q k^T), P = exp(logits - lse), D = rowsum(dO * O)
+    (- dlse), dS = P * (dO v^T - D), dq = scale * dS k, dk = scale * dS^T q,
     dv = P^T dO. It forms P and dS once for the three."""
     scale = 1.0 / q.shape[-1] ** 0.5
-    p, ds = _probs_and_ds(q, k, v, dout, lse, (dout * out).sum(dim=-1))
+    p, ds = _probs_and_ds(q, k, v, dout, lse, _row_term(out, dout, dlse))
     dq = scale * torch.bmm(ds, k)
     return dq, scale * torch.bmm(ds.transpose(1, 2), q), torch.bmm(p.transpose(1, 2), dout)
 
@@ -160,6 +184,15 @@ def flash_attention_dq(q, k, v, dout, lse, dd):
     3xTF32 on the tensor cores, within f32 rounding of
     flash_attention_dq_plain, not bit-equal to it). dd is
     rowsum(dout * out), [B, S] like lse."""
+    _check("flash_attention_dq", q, k, v, dout)
+    _rows("flash_attention_dq", q, lse, dd)
+    _on_card("flash_attention_dq", q)
+    return torch.ops.sgam.flash_attention_dq(q, k, v, dout, lse, dd)
+
+
+def flash_attention_dq_cuda(q, k, v, dout, lse, dd):
+    """The op's CUDA implementation: one launch of `flash_dq_kernel`,
+    counted in `flash_attention_dq.launches`."""
     _check("flash_attention_dq", q, k, v, dout)
     _rows("flash_attention_dq", q, lse, dd)
     _kernel_inputs("flash_attention_dq", (q, k, v, dout, lse, dd))
@@ -186,6 +219,15 @@ def flash_attention_dkv(q, k, v, dout, lse, dd):
     flash_attention_dq."""
     _check("flash_attention_dkv", q, k, v, dout)
     _rows("flash_attention_dkv", q, lse, dd)
+    _on_card("flash_attention_dkv", q)
+    return torch.ops.sgam.flash_attention_dkv(q, k, v, dout, lse, dd)
+
+
+def flash_attention_dkv_cuda(q, k, v, dout, lse, dd):
+    """The op's CUDA implementation: one launch of `flash_dkv_kernel`,
+    counted in `flash_attention_dkv.launches`."""
+    _check("flash_attention_dkv", q, k, v, dout)
+    _rows("flash_attention_dkv", q, lse, dd)
     _kernel_inputs("flash_attention_dkv", (q, k, v, dout, lse, dd))
     b, s, c = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -204,14 +246,16 @@ def flash_attention_dkv(q, k, v, dout, lse, dd):
 flash_attention_dkv.launches = 0
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout):
+def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None):
     """Attention backward: (dq, dk, dv) for the upstream gradient dout of
-    out = flash_attention(q, k, v), from the forward's (out, lse)."""
+    out = flash_attention(q, k, v), from the forward's (out, lse); `dlse`,
+    an upstream gradient of lse, where the caller has one (the op's
+    autograd formula)."""
     _check("flash_attention_bwd", q, k, v, out, dout)
-    _rows("flash_attention_bwd", q, lse)
+    _rows("flash_attention_bwd", q, lse, *(() if dlse is None else (dlse,)))
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout)
-    dd = (dout * out).sum(dim=-1)
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse)
+    dd = _row_term(out, dout, dlse)
     return (flash_attention_dq(q, k, v, dout, lse, dd), *flash_attention_dkv(q, k, v, dout, lse, dd))
 
 

@@ -1,8 +1,10 @@
 """Nearest-codeword search: argmin_k ||z - e_k||^2 with first-occurrence ties.
 
-`nearest_codeword` launches the CUDA kernel `csrc/nearest_codeword.cu` for
-a CUDA tensor and runs `nearest_codeword_plain` for a CPU tensor; nothing
-else selects the plain version. It replaces the TPU kernel
+`nearest_codeword` calls the custom op `torch.ops.sgam.nearest_codeword`
+(`ops/library.py`), whose CUDA implementation `nearest_codeword_cuda`
+launches the CUDA kernel `csrc/nearest_codeword.cu` and whose CPU
+implementation is `nearest_codeword_plain`; nothing else selects the plain
+version. It replaces the TPU kernel
 `sgam_neurips22_tpu/ops/vq_pallas.py::nearest_codeword` (see the .cu for its
 design and bound). Both versions rank codewords by ||e||^2 - 2 z.e, as the
 TPU kernel does, and add ||z||^2 to the winning distance only.
@@ -30,6 +32,13 @@ def nearest_codeword_plain(z_flat: torch.Tensor, codebook: torch.Tensor):
     return idx.to(torch.int32), dist
 
 
+def _check(z_flat: torch.Tensor, codebook: torch.Tensor) -> None:
+    if z_flat.dim() != 2 or codebook.dim() != 2 or z_flat.shape[1] != codebook.shape[1]:
+        raise ValueError(f"z {tuple(z_flat.shape)} and codebook {tuple(codebook.shape)} must be [P, D] and [K, D]")
+    if codebook.shape[0] < 1:
+        raise ValueError("empty codebook")
+
+
 def nearest_codeword(z_flat: torch.Tensor, codebook: torch.Tensor):
     """argmin_k ||z - e_k||^2 for each row of z.
 
@@ -39,12 +48,16 @@ def nearest_codeword(z_flat: torch.Tensor, codebook: torch.Tensor):
     Returns:
       (indices [P] int32, squared distances [P] f32, ||z||^2 included).
     """
-    if z_flat.dim() != 2 or codebook.dim() != 2 or z_flat.shape[1] != codebook.shape[1]:
-        raise ValueError(f"z {tuple(z_flat.shape)} and codebook {tuple(codebook.shape)} must be [P, D] and [K, D]")
-    if codebook.shape[0] < 1:
-        raise ValueError("empty codebook")
-    if z_flat.device.type == "cpu":
-        return nearest_codeword_plain(z_flat, codebook)
+    _check(z_flat, codebook)
+    if z_flat.device.type not in ("cpu", "cuda") or codebook.device != z_flat.device:
+        raise ValueError(f"nearest_codeword: z on {z_flat.device}, codebook on {codebook.device}")
+    return torch.ops.sgam.nearest_codeword(z_flat, codebook)
+
+
+def nearest_codeword_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
+    """The op's CUDA implementation: one launch of the kernel, counted in
+    `nearest_codeword.launches`."""
+    _check(z_flat, codebook)
     if z_flat.device.type != "cuda" or codebook.device != z_flat.device:
         raise ValueError(f"nearest_codeword: z on {z_flat.device}, codebook on {codebook.device}")
     if z_flat.dtype != torch.float32 or codebook.dtype != torch.float32:

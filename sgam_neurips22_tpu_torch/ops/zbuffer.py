@@ -1,8 +1,10 @@
 """Z-buffer merge of the forward splat: per-image scatter-min of packed keys.
 
-`zbuffer_min` launches the CUDA kernels of `csrc/zbuffer_min.cu` for a CUDA
-tensor and runs `zbuffer_min_plain` for a CPU tensor; nothing else selects
-the plain version. It replaces the TPU kernel
+`zbuffer_min` calls the custom op `torch.ops.sgam.zbuffer_min`
+(`ops/library.py`), whose CUDA implementation `zbuffer_min_cuda` launches
+the CUDA kernels of `csrc/zbuffer_min.cu` and whose CPU implementation is
+`zbuffer_min_plain`; nothing else selects the plain version. It replaces
+the TPU kernel
 `sgam_neurips22_tpu/ops/splat_pallas.py::zbuffer_min` (see the .cu for its
 design and bound). `zbuffer_plan` picks the kernel's route from the shape
 alone: the shared-memory row window ("tile") where each block has points
@@ -73,6 +75,13 @@ def zbuffer_min_plain(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> t
     )
 
 
+def _check(pix: torch.Tensor, key: torch.Tensor) -> None:
+    if pix.shape != key.shape or pix.dim() != 2:
+        raise ValueError(f"pix {tuple(pix.shape)} and key {tuple(key.shape)} must be one [B, P] shape")
+    if pix.dtype != torch.int32 or key.dtype != torch.int32:
+        raise TypeError("zbuffer_min takes int32 pix and key")
+
+
 def zbuffer_min(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Per-image scatter-min of int32 keys over linear pixel ids.
 
@@ -86,12 +95,16 @@ def zbuffer_min(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> torch.T
       image. On the card both routes merge into an output filled with
       INT32_MAX first.
     """
-    if pix.shape != key.shape or pix.dim() != 2:
-        raise ValueError(f"pix {tuple(pix.shape)} and key {tuple(key.shape)} must be one [B, P] shape")
-    if pix.dtype != torch.int32 or key.dtype != torch.int32:
-        raise TypeError("zbuffer_min takes int32 pix and key")
-    if pix.device.type == "cpu":
-        return zbuffer_min_plain(pix, key, h, w)
+    _check(pix, key)
+    if pix.device.type not in ("cpu", "cuda") or key.device != pix.device:
+        raise ValueError(f"zbuffer_min: pix on {pix.device}, key on {key.device}")
+    return torch.ops.sgam.zbuffer_min(pix, key, h, w)
+
+
+def zbuffer_min_cuda(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The op's CUDA implementation: one launch on `zbuffer_plan`'s route,
+    counted in `zbuffer_min.launches`."""
+    _check(pix, key)
     if pix.device.type != "cuda" or key.device != pix.device:
         raise ValueError(f"zbuffer_min: pix on {pix.device}, key on {key.device}")
     if not (pix.is_contiguous() and key.is_contiguous()):
@@ -103,7 +116,7 @@ def zbuffer_min(pix: torch.Tensor, key: torch.Tensor, h: int, w: int) -> torch.T
 
 def _launch(pix: torch.Tensor, key: torch.Tensor, h: int, w: int, plan: ZbufferPlan) -> torch.Tensor:
     """One launch of the kernels on `plan`'s route, for CUDA tensors that
-    zbuffer_min has checked (or chip_smoke's timing of both routes at one
+    zbuffer_min_cuda has checked (or chip_smoke's timing of both routes at one
     shape); counts nothing."""
     b, p = pix.shape
     out = torch.full((b, h * w), IMAX, dtype=torch.int32, device=pix.device)

@@ -117,13 +117,16 @@ def load_inference_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
 def build_inference_step(model_cfg: VQModelConfig, topk: int = 1, num_src: int = 5, image_size: int = 256,
                          device: str | torch.device = "cuda"):
     """(fn, (model, batch, generator)) for one conditional-generation
-    inference step on `model_cfg`: fn(model, batch, generator) -> (rgb
-    [B, H, W, 3] clipped to [-1, 1], metric depth [B, H, W]).
+    inference step on `model_cfg`: fn(model, batch, generator, gumbel=None)
+    -> (rgb [B, H, W, 3] clipped to [-1, 1], metric depth [B, H, W]).
 
     The step: `get_x` without a depth range, the model's forward with the
-    extrapolation mask and top-k (`generator` draws at topk > 1), sample 0,
-    depth through the dataset's codec. The model takes seeded random
-    weights (`random_state_dict`, seed 0) and the example batch is the JAX
+    extrapolation mask and top-k (at topk > 1 `generator` draws the Gumbel
+    noise, or `gumbel` [P, 1, topk] is the noise itself), sample 0, depth
+    through the dataset's codec. fn runs under inference mode;
+    `fn.__wrapped__` is the same step without it (`export_aot` traces it
+    under no_grad). The model takes seeded random weights
+    (`random_state_dict`, seed 0) and the example batch is the JAX
     package's, from `np.random.default_rng(0)`: 5 sources of uniform RGB
     and depth in the model's depth range, the dataset's focal length of
     355.5555 at the image centre, identity rotations, zero translations.
@@ -156,10 +159,10 @@ def build_inference_step(model_cfg: VQModelConfig, topk: int = 1, num_src: int =
     generator = torch.Generator(device=dev).manual_seed(3)
 
     @torch.inference_mode()
-    def fn(model, batch, generator):
+    def fn(model, batch, generator, gumbel=None):
         cond = get_x(batch, model_cfg.dataset, depth_range=None)
         res = model(cond.x, extrapolation_mask=cond.extrapolation_mask, topk=topk, sample_number=1,
-                    generator=generator)
+                    generator=generator, gumbel=gumbel)
         xrec = res.xrec[:, 0]
         return torch.clamp(xrec[..., :3], -1.0, 1.0), codec.decode(xrec[..., 3])
 
