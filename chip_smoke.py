@@ -123,6 +123,21 @@ the device's idle share):
   InceptionV3's features of 8 frames on the card against the CPU;
 - serve_map: a map-requery server (CLEVR 3 x 3, bf16): two requests with
   equal checksums (reset rebuilds the map);
+- parity_check: the port's checkpoint-parity tool (`python -m
+  sgam_neurips22_tpu_torch.parity_check`, its `run`) on a flagship .ckpt
+  written from the seeded weights with codewords drawn from the model's
+  own pre-quant latents: --record on the CPU, then on the card --compare
+  against it, the cross-check against the torch-functional oracle, and
+  --compare of a copy with one decoder tensor perturbed, which must exit 1
+  on decoder-side stages only; one z-buffer and two codeword launches a
+  card run; each stage's max |diff| beside its largest magnitude;
+- convert_exr: the port's EXR converter (`python -m
+  sgam_neurips22_tpu_torch.convert_exr`, its main) on four 256^2 Blender
+  multilayer renders (HALF and FLOAT, ZIP and NONE) written here from
+  seeded arrays: the depth and instance files equal to the arrays (HALF as
+  np.float16 rounds them), the PNGs to their sRGB; whether this machine
+  has OpenEXR or an EXR-capable cv2 is probed, and either is held against
+  the port's reader;
 - train: the conditional-generation GAN training step as `bench.py
   --config train_conditional` defines it (batch 16, n_src 2, n_embed
   16384, remat, flash attention, disc_start 0, Adam (0.5, 0.9), LPIPS with
@@ -134,7 +149,8 @@ the device's idle share):
   parity_train: one step at batch 2 on the card against the same step on
   the CPU (logs, codeword indices, the discriminator's running statistics,
   and every trainable gradient, both devices' also against the step's
-  gradients in float64 on the CPU);
+  gradients in float64, computed on the card with the plain attention and
+  codeword search);
 - train_bf16: the same step with a bf16 model (train_conditional_bf16),
   the same launches; then parity_train_bf16, its batch-2 step on the card
   and on the CPU, each held to the CPU's f32 step at a codebook where no
@@ -186,11 +202,13 @@ the device's idle share):
   per-scene sum). dp_two_ranks_one_card's batch has halves of two kinds
   (random images and flat walls), on which both planted faults must fail.
 
-Each phase prints one JSON line with its seconds; --out DIR also writes the
-details to DIR/chip_smoke.json and nvcc's register report to
-DIR/chip_smoke_ptxas.txt. The last line is {"ok": true, "device": {...}}
-and is printed only when every check passed. It exits non-zero without
-that line when CUDA is unavailable or any check fails.
+Device times by kernel come from torch.profiler traces, summed from the
+trace's raw events (device_rows). Each phase prints one JSON line with its
+seconds; --out DIR also writes the details to DIR/chip_smoke.json and
+nvcc's register report to DIR/chip_smoke_ptxas.txt. The last line is
+{"ok": true, "device": {...}} and is printed only when every check passed.
+It exits non-zero without that line when CUDA is unavailable or any check
+fails.
 """
 from __future__ import annotations
 
@@ -277,6 +295,24 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_rows(prof) -> list:
+    """[(device us, kernel name, calls)] of a finished torch.profiler trace,
+    largest first: the time of every event on the card summed by name (for
+    a kernel, what key_averages() gives as its self device time). Read from
+    the trace's raw events: key_averages() builds a Python event tree first,
+    which took 7.5 s for the batch-1 flythrough's 44.6k kernels on an H100's
+    host, against 0.4 s for these sums."""
+    from torch.autograd import DeviceType
+
+    agg: dict[str, list] = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0 and not ev.is_user_annotation():
+            row = agg.setdefault(ev.name(), [0, 0])
+            row[0] += ev.duration_ns()
+            row[1] += 1
+    return sorted(((ns / 1e3, name, n) for name, (ns, n) in agg.items()), reverse=True)
+
+
 def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = None) -> float | None:
     """Device time per fn() call: the summed time of every kernel that
     `iters` calls launched (only those whose name matches the regex
@@ -288,7 +324,6 @@ def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = N
     or is None where `match` asks for some kernels only."""
     import re
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -299,9 +334,9 @@ def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = N
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-        if sum(ev.self_device_time_total for ev in events) > 0:
-            us = sum(ev.self_device_time_total for ev in events if match is None or re.search(match, ev.key))
+        rows = device_rows(prof)
+        if rows:
+            us = sum(r[0] for r in rows if match is None or re.search(match, r[1]))
             return us / 1e3 / iters
     PROFILER_MISSES.append(f"device_ms(match={match!r})")
     return None if match else cuda_ms(torch, fn, iters, warmup)
@@ -569,30 +604,6 @@ def check_collision_modes(torch, np, gen, rng, failures) -> dict:
     return rows
 
 
-def near_ties_ok(torch, z, cb, idx, ref_idx) -> tuple[int, bool]:
-    """(rows whose indices differ, whether every one is an f32 near-tie):
-    the two codewords' exact (f64) scores e2 - 2 z.e within 1e-6 of the
-    scale of their f32 sums."""
-    rows = torch.nonzero(idx != ref_idx).flatten()
-    if len(rows) == 0:
-        return 0, True
-    z64 = z[rows].double()
-    a, b = (cb[i[rows].long()].double() for i in (idx, ref_idx))
-    score = [(e * e).sum(1) - 2 * (z64 * e).sum(1) for e in (a, b)]
-    scale = torch.maximum(*((e * e).sum(1) + 2 * (z64 * e).abs().sum(1) for e in (a, b)))
-    return len(rows), bool(((score[0] - score[1]).abs() <= 1e-6 * scale).all())
-
-
-def distance_gate_share(torch, z, cb, idx, dist) -> float:
-    """The largest error of a winning distance against the float64
-    ||z - e_idx||^2, as a share of its gate 1e-6 (||z||^2 + ||e_idx||^2 +
-    2 sum |z e_idx|): the scale of the f32 sums that make the distance."""
-    z64, e64 = z.double(), cb[idx.long()].double()
-    ref = ((z64 - e64) ** 2).sum(1)
-    scale = (z64 * z64).sum(1) + (e64 * e64).sum(1) + 2 * (z64 * e64).abs().sum(1)
-    return float(((dist.double() - ref).abs() / (1e-6 * scale)).max())
-
-
 def check_nearest_codeword(torch, codebook, failures):
     """The codeword search against its plain version, on the flagship's
     seeded init codebook (uniform(-1/K, 1/K), K=16384) at the batch-1
@@ -614,7 +625,12 @@ def check_nearest_codeword(torch, codebook, failures):
     f32 CUDA-core bound, bound_tc_ms the 3xTF32 one (three TF32 products a
     product at the tensor cores' dense rate), on every row. The reported
     times and bounds are P=256's; every case's are under "shapes"."""
-    from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword, nearest_codeword_plain
+    from sgam_neurips22_tpu_torch.ops.vq import (
+        distance_gate_share,
+        near_ties_ok,
+        nearest_codeword,
+        nearest_codeword_plain,
+    )
 
     dev = codebook.device
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -652,12 +668,12 @@ def check_nearest_codeword(torch, codebook, failures):
         idx, dist = nearest_codeword(z, cb)
         pidx, pdist = nearest_codeword_plain(z, cb)
         torch.cuda.synchronize()
-        mismatches, ties_ok = near_ties_ok(torch, z, cb, idx, pidx)
-        share = distance_gate_share(torch, z, cb, idx, dist)
+        mismatches, ties_ok = near_ties_ok(z, cb, idx, pidx)
+        share = distance_gate_share(z, cb, idx, dist)
         b_ms, b_by = bound(4 * (p * d + k * d) + 8 * p, 2.0 * p * k * d)
         row = {"case": name, "shape": {"P": p, "K": k, "D": d}, "index_mismatches": mismatches,
                "near_ties_ok": ties_ok, "max_abs_err": float((dist - pdist).abs().max()), "gate_share": share,
-               "plain_gate_share": distance_gate_share(torch, z, cb, pidx, pdist), "bound_ms": b_ms,
+               "plain_gate_share": distance_gate_share(z, cb, pidx, pdist), "bound_ms": b_ms,
                "bound_by": b_by, "bound_tc_ms": 3 * 2.0 * p * k * d / TF32_FLOP_PER_S * 1e3}
         if name.startswith("clustered"):
             row["ok"] = ties_ok and share <= 1.0
@@ -904,7 +920,6 @@ def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
     into PROFILER_MISSES."""
     import re
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -913,11 +928,7 @@ def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
         unroll()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            rows.append((ev.self_device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     if not rows:
         PROFILER_MISSES.append("profile_unroll")
@@ -1179,34 +1190,41 @@ def run_train(torch, np, counters, failures, dtype: str = "float32") -> tuple:
     return rep, prof
 
 
-def f64_gradients(torch, cfg, x, x_dst, mask) -> dict:
+def f64_gradients(torch, cfg, x, x_dst, mask, device: str = "cuda") -> dict:
     """The autoencoder gradients of the training step's loss in float64 on
-    the CPU, from the same seeded state and the same f32 conditioning: the
-    reference both f32 runs are measured against. The attention wrappers
-    take f32 only, so this run calls their plain versions directly."""
-    from sgam_neurips22_tpu_torch.ops import attention
+    `device`, returned on the CPU, from the same seeded state and the same
+    f32 conditioning: the reference both f32 runs are measured against.
+    The hand kernels take f32 only, so this run calls the plain versions of
+    the attention and the codeword search directly (the search ranks the
+    f64 latents in f32). On an H100 the card's float64 gradients lay within
+    1.7e-13 (relative, worst tensor) of the CPU's and took 1.5-2.9 s
+    against the CPU's 64 s, so parity_train computes them on the card."""
+    from sgam_neurips22_tpu_torch.models.vqgan import quantize
+    from sgam_neurips22_tpu_torch.ops import attention, vq
     from sgam_neurips22_tpu_torch.training.lpips import random_lpips
     from sgam_neurips22_tpu_torch.training.train_step import _ae_loss, create_train_state, split_params
 
-    wrappers = attention.flash_attention_fwd, attention.flash_attention_bwd
-    attention.flash_attention_fwd, attention.flash_attention_bwd = (
-        attention.flash_attention_plain, attention.flash_attention_bwd_plain)
+    wrappers = attention.flash_attention_fwd, attention.flash_attention_bwd, quantize.nearest_codeword
+    attention.flash_attention_fwd, attention.flash_attention_bwd, quantize.nearest_codeword = (
+        attention.flash_attention_plain, attention.flash_attention_bwd_plain, vq.nearest_codeword_plain)
     try:
-        state = create_train_state(cfg, seed=SEED, device="cpu")
+        state = create_train_state(cfg, seed=SEED, device=device)
         state.model.double()
         state.disc.double()
-        lpips = random_lpips(SEED + 2).double()
-        loss = _ae_loss(state.model, state.disc, lpips, x.cpu().double(), x_dst.cpu().double(), mask.cpu(), 0, cfg)[0]
+        lpips = random_lpips(SEED + 2).to(device).double()
+        loss = _ae_loss(state.model, state.disc, lpips, x.to(device).double(), x_dst.to(device).double(),
+                        mask.to(device), 0, cfg)[0]
         names, params = zip(*split_params(state.model, cfg.phase)[0])
-        return dict(zip(names, torch.autograd.grad(loss, params)))
+        return {n: g.cpu() for n, g in zip(names, torch.autograd.grad(loss, params))}
     finally:
-        attention.flash_attention_fwd, attention.flash_attention_bwd = wrappers
+        attention.flash_attention_fwd, attention.flash_attention_bwd, quantize.nearest_codeword = wrappers
 
 
 def parity_train(torch, np, failures, bs: int = 2) -> dict:
     """One training step at batch `bs`, full width, on the card (kernels)
     and on the CPU (plain versions) from the same seeded state and batch,
-    and the same step's autoencoder gradients in float64 on the CPU.
+    and the same step's autoencoder gradients in float64 (on the card:
+    f64_gradients).
 
     Tolerances: every log at rtol 1e-4 plus atol 1e-6, but the adaptive
     weight d_weight at rtol 1e-3 (a ratio of gradient norms taken through
@@ -1280,7 +1298,7 @@ def parity_train(torch, np, failures, bs: int = 2) -> dict:
     grads_ok = noise_ok and worst["gpu_vs_f64"][1] <= 1.5 * worst["cpu_vs_f64"][1] and worst["gpu_vs_cpu"][1] <= 3e-2
     stats_ok = all(torch.allclose(g_stats[n], c, rtol=1e-4, atol=1e-6) for n, c in c_stats.items())
     res = {
-        "batch": bs, "gpu_seconds": g_s, "cpu_seconds": c_s, "cpu_f64_seconds": f64_s,
+        "batch": bs, "gpu_seconds": g_s, "cpu_seconds": c_s, "f64_seconds": f64_s, "f64_device": "cuda",
         "logs_gpu": g_logs, "logs_cpu": c_logs, "log_rel_err": log_err, "logs_ok": logs_ok,
         "index_agreement": float((g_idx == c_idx).float().mean()),
         "grad_tensors": len(ref), "grad_noise_tensors": noise, "grad_noise_floor": floor,
@@ -3370,6 +3388,277 @@ def serving_phases(torch, np, counters, failures, card, paths: dict, report: dic
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- the checkpoint tools
+# (the port's parity_check and convert_exr through their CLIs' entry points)
+PARITY_POOL_IMAGES = 64  # other seeded inputs whose latents (256 each) fill the k-means buffer beside the frame's
+PARITY_OUTPUT_PEAK = 0.9  # the frame's largest decoded |RGB-D| after parity_weights scales decoder.conv_out
+PARITY_FAULT = "decoder.conv_in.weight"  # the planted fault: this tensor scaled by 1.01 in a copy of the .ckpt
+PARITY_WANT = {"zbuffer_min": 1, "nearest_codeword": 2, "flash_attention_fwd": 0, "flash_attention_dq": 0,
+               "flash_attention_dkv": 0}  # a run on the card: the splat stage; the indices stage and the frame
+DECODER_STAGES = {"decode", "frame_rgb", "frame_depth"}
+
+
+def tie_margins(torch, z, cb) -> dict:
+    """How near the latents z [P, D] lie to an f32 tie of their two nearest
+    codewords in cb [K, D], in float64 on the card: each row's gap between
+    its two best scores ||e||^2 - 2 z.e over the scale of their f32 sums
+    (||e||^2 + 2 sum |z e|, ops.vq.near_ties_ok's), in units of 1e-6, the
+    width near_ties_ok calls a tie."""
+    z64, e64 = z.cuda().double(), cb.cuda().double()
+    score = (e64 * e64).sum(1)[None] - 2 * z64 @ e64.T
+    vals, idx = torch.topk(-score, 2, dim=1)
+    (s1, s2), (i1, i2) = -vals.T, idx.T
+    scale = torch.maximum(*((e64[i] ** 2).sum(1) + 2 * (z64 * e64[i]).abs().sum(1) for i in (i1, i2)))
+    gap = ((s2 - s1) / scale / 1e-6).cpu()
+    return {"rows": len(gap), "near_tie_rows": int((gap <= 1).sum()), "rows_within_10": int((gap <= 10).sum()),
+            "min_gap": float(gap.min()), "median_gap": float(gap.median())}
+
+
+def parity_weights(torch, np, cpu_model) -> tuple:
+    """(state_dict, report): the seeded weights with two tensors set as a
+    trained model's would be, for the tool's input frame (its seed-0
+    random input).
+
+    The codebook: rows of the model's own pre-quant latents, drawn by the
+    trainer's k-means init (`training.kmeans.kmeans_init`) from a buffer
+    that holds the frame's latents and those of PARITY_POOL_IMAGES other
+    uniform inputs, as a codebook trained on data that holds the frame:
+    each of the frame's latents lies on its codeword, as a trained model's
+    sit near theirs. The report gives the frame's tie margins
+    (`tie_margins`) on it and on a codebook drawn from the other inputs
+    alone, where the latents lie between codewords (on an H100 a CPU
+    recording then failed --compare on the card: one of 256 rows was an
+    f32 near-tie). (The init codebook, uniform(+-1/16384), makes nearly
+    every row a near-tie once ||z||^2 is in the sum, as in the oracle's.)
+
+    decoder.conv_out, weight and bias, scaled so that the frame's decoded
+    RGB-D lies within +-PARITY_OUTPUT_PEAK, inside the depth codec's [-1,
+    1] as a trained decoder's disparity is: the seeded conv_out put
+    disparity below -1, where the codec's 1 / x sent depth past 100 m and
+    magnified f32 rounding past frame_depth's tolerance on an H100. The
+    report gives the seeded layer's peak and depth range, and the scale."""
+    from sgam_neurips22_tpu_torch.geometry.codec import get_codec
+    from sgam_neurips22_tpu_torch.training.kmeans import kmeans_init
+
+    model = copy.deepcopy(cpu_model).cuda().eval()
+    rng = np.random.default_rng(SEED + 21)
+    k, d = model.codebook.shape
+    frame = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, H, W, 4)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        z = model.encode_prequant(frame).reshape(-1, d).cpu()
+        rows = [model.encode_prequant(torch.from_numpy(rng.uniform(-1, 1, (16, H, W, 4)).astype(np.float32)).cuda())
+                .reshape(-1, d).cpu() for _ in range(PARITY_POOL_IMAGES // 16)]
+    others = torch.cat(rows)
+    gen = torch.Generator().manual_seed(SEED)
+    codebook = kmeans_init(torch.cat([z, others[:k - len(z)]]), k, gen).contiguous()
+    rep = {"tie_margins": {"frame_in_buffer": tie_margins(torch, z, codebook),
+                           "other_inputs_only": tie_margins(torch, z, kmeans_init(others, k, gen))}}
+    with torch.no_grad():
+        model.codebook.copy_(codebook)
+    with torch.inference_mode():
+        xr = model(frame, extrapolation_mask=torch.zeros((1, H, W, 1), dtype=torch.bool, device=frame.device),
+                   topk=1).xrec[:, 0]
+        depth = get_codec("clevr-infinite").decode(xr[..., 3])
+    del model
+    peak = float(xr.abs().max())
+    scale = min(1.0, PARITY_OUTPUT_PEAK / peak)
+    rep["conv_out"] = {"seeded_peak": peak, "seeded_frame_depth_range": [float(depth.min()), float(depth.max())],
+                       "scale": scale}
+    sd = {n: v.detach().clone() for n, v in cpu_model.state_dict().items()}
+    sd["quantize.embedding.weight"] = codebook
+    for n in ("decoder.conv_out.weight", "decoder.conv_out.bias"):
+        sd[n] = sd[n] * scale
+    return sd, rep
+
+
+def parity_check_phase(torch, np, root: Path, cpu_model, counters, failures) -> dict:
+    """`python -m sgam_neurips22_tpu_torch.parity_check` (its `run`) on a
+    flagship-width .ckpt of `parity_weights` (the seeded weights with a
+    latent-drawn codebook and an output layer in the codec's range, both
+    reported): --record on the CPU, then on the card
+    --compare against that recording, the default cross-check (the
+    torch-functional oracle on the CPU), and --compare of a copy with
+    PARITY_FAULT perturbed. Gates: the record, the compare and the
+    cross-check exit 0, the planted fault exits 1 on decoder-side stages
+    only (encode, pre_quant and indices within tolerance), and each card
+    run launches PARITY_WANT. Each stage's max |diff| stands beside its
+    largest magnitude."""
+    from sgam_neurips22_tpu_torch import parity_check
+
+    t0 = time.perf_counter()
+    sd, weights = parity_weights(torch, np, cpu_model)
+    ckpt, planted = root / "parity.ckpt", root / "planted.ckpt"
+    torch.save({"state_dict": sd}, ckpt)
+    sd[PARITY_FAULT] = sd[PARITY_FAULT] * 1.01
+    torch.save({"state_dict": sd}, planted)
+    del sd
+    rep = {"setup_seconds": time.perf_counter() - t0, "planted_fault": f"{PARITY_FAULT} x 1.01", **weights,
+           "runs": {}}
+    golden = str(root / "golden.npz")
+    for name, path, flags, want_code in (("record_cpu", ckpt, ["--record", golden, "--device", "cpu"], 0),
+                                         ("compare", ckpt, ["--compare", golden], 0),
+                                         ("cross_check", ckpt, [], 0),
+                                         ("planted_compare", planted, ["--compare", golden], 1)):
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        code, out = parity_check.run([str(path), *flags])
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        stages = {stage: {"max_abs_diff": diff, "tol": tol, "ok": ok, "magnitude": out["magnitude"][stage]}
+                  for stage, diff, tol, ok in out.get("rows", [])}
+        run = {"exit_code": code, "seconds": time.perf_counter() - t0, "launches": launches, "stages": stages,
+               "index_rows_differ": out.get("index_rows_differ"), "index_near_ties": out.get("index_near_ties")}
+        failed = {s for s, r in run["stages"].items() if not r["ok"]}
+        on_card = name != "record_cpu"
+        run["ok"] = code == want_code and launches == (PARITY_WANT if on_card else dict.fromkeys(launches, 0))
+        if name == "planted_compare":
+            run["ok"] &= "decode" in failed and failed <= DECODER_STAGES
+        rep["runs"][name] = run
+        if not run["ok"]:
+            failures.append(f"parity_check {name}: {run}")
+    rep["ok"] = all(r["ok"] for r in rep["runs"].values())
+    return rep
+
+
+EXR_SIDE = 256
+EXR_CASES = (("half_zip", "ZIP", "float16"), ("half_none", "NONE", "float16"), ("float_zip", "ZIP", "float32"),
+             ("float_none", "NONE", "float32"))  # (file, compression, pixel type): Blender multilayer renders
+
+
+def write_exr(np, path: Path, channels: dict, zip_lines: bool) -> None:
+    """A scanline OpenEXR file (NONE, or ZIP in 16-line chunks) of
+    {name: [H, W] float16 / float32}, from the file layout, independent of
+    the port's reader."""
+    import struct
+    import zlib
+
+    names = sorted(channels)
+    h, w = channels[names[0]].shape
+    kinds = {np.dtype("float16"): 1, np.dtype("float32"): 2}
+
+    def attr(name, kind, value):
+        return name.encode() + b"\0" + kind.encode() + b"\0" + struct.pack("<i", len(value)) + value
+
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    chlist = b"".join(n.encode() + b"\0" + struct.pack("<iB3xii", kinds[channels[n].dtype], 0, 1, 1)
+                      for n in names) + b"\0"
+    header = (attr("channels", "chlist", chlist) + attr("compression", "compression", bytes([3 if zip_lines else 0]))
+              + attr("dataWindow", "box2i", box) + attr("displayWindow", "box2i", box)
+              + attr("lineOrder", "lineOrder", b"\0") + attr("pixelAspectRatio", "float", struct.pack("<f", 1))
+              + attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1)) + b"\0")
+    lines = 16 if zip_lines else 1
+    chunks = []
+    for y in range(0, h, lines):
+        raw = b"".join(channels[n][r].astype(channels[n].dtype.newbyteorder("<")).tobytes()
+                       for r in range(y, min(y + lines, h)) for n in names)
+        if zip_lines:  # byte split, delta predictor, deflate (stored raw where that does not shrink it)
+            b = np.frombuffer(raw, np.uint8)
+            t = np.concatenate([b[0::2], b[1::2]]).astype(np.int64)
+            t[1:] = (np.diff(t) + 384) % 256
+            packed = zlib.compress(t.astype(np.uint8).tobytes())
+            raw = packed if len(packed) < len(raw) else raw
+        chunks.append(struct.pack("<ii", y, len(raw)) + raw)
+    head = struct.pack("<ii", 20000630, 2) + header
+    offsets, pos = [], len(head) + 8 * len(chunks)
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    path.write_bytes(head + struct.pack(f"<{len(chunks)}Q", *offsets) + b"".join(chunks))
+
+
+def convert_exr_phase(np, root: Path, failures) -> dict:
+    """`python -m sgam_neurips22_tpu_torch.convert_exr` (its main) on this
+    machine's host: EXR_CASES, each a 256^2 Blender multilayer render
+    ("View Layer.Combined.R/G/B/A", "View Layer.Depth.Z", "View
+    Layer.IndexOB.X") from seeded arrays, written by `write_exr`; the
+    outputs read back must equal the arrays (FLOAT bit for bit, HALF as
+    np.float16 rounds them) and the PNGs `linear_to_srgb` of them. Whether
+    this machine has the OpenEXR package or an EXR-capable cv2 is probed,
+    and where one is there the port's reader is held against it."""
+    from sgam_neurips22_tpu_torch import convert_exr
+    from sgam_neurips22_tpu_torch.pipeline.exr import read_exr
+    from sgam_neurips22_tpu_torch.pipeline.png import read_png
+
+    src, out = root / "renders", root / "converted"
+    src.mkdir()
+    rng = np.random.default_rng(SEED + 23)
+    arrays = {}
+    for name, compression, dtype in EXR_CASES:
+        ch = {f"View Layer.Combined.{c}": rng.uniform(0, 1.2, (EXR_SIDE, EXR_SIDE)) for c in "RGB"}
+        ch["View Layer.Combined.A"] = np.ones((EXR_SIDE, EXR_SIDE))
+        ch["View Layer.Depth.Z"] = rng.uniform(7, 16, (EXR_SIDE, EXR_SIDE))
+        ch["View Layer.IndexOB.X"] = rng.integers(0, 9, (EXR_SIDE, EXR_SIDE)).astype(np.float64)
+        arrays[name] = {k: v.astype(dtype) for k, v in ch.items()}
+        write_exr(np, src / f"{name}.exr", arrays[name], compression == "ZIP")
+    t0 = time.perf_counter()
+    convert_exr.main([str(src), "--out", str(out)])
+    rep = {"files": [c[0] for c in EXR_CASES], "side": EXR_SIDE, "convert_seconds": time.perf_counter() - t0,
+           "cases": {}}
+    for i, (name, compression, dtype) in enumerate(sorted(EXR_CASES)):
+        a = {k.split(".", 1)[1]: v.astype(np.float32) for k, v in arrays[name].items()}
+        rgb = np.stack([a[f"Combined.{c}"] for c in "RGB"], axis=2)
+        srgb = np.clip(convert_exr.linear_to_srgb(rgb) * 255.0, 0, 255).astype(np.uint8)
+        case = {"compression": compression, "pixel_type": dtype,
+                "depth_equal": np.array_equal(np.load(out / f"dm_{i:05d}.npy"), a["Depth.Z"]),
+                "instance_equal": np.array_equal(np.load(out / f"in_{i:05d}.npy"), a["IndexOB.X"]),
+                "png_equal": np.array_equal(read_png(str(out / f"im_{i:05d}.png")), srgb)}
+        case["ok"] = case["depth_equal"] and case["instance_equal"] and case["png_equal"]
+        rep["cases"][name] = case
+    probe = src / f"{EXR_CASES[0][0]}.exr"
+    _, ours = read_exr(str(probe))
+    try:
+        import Imath
+        import OpenEXR
+
+        f = OpenEXR.InputFile(str(probe))
+        flt = Imath.PixelType(Imath.PixelType.FLOAT)
+        rep["openexr"] = all(np.array_equal(np.frombuffer(f.channel(n, flt), np.float32).reshape(EXR_SIDE, EXR_SIDE),
+                                            v.astype(np.float32)) for n, v in ours.items())
+    except ImportError:
+        rep["openexr"] = "not installed"
+    plain = {c: ours[f"View Layer.Combined.{c}"] for c in "RGB"}  # OpenCV reads single-layer files only
+    write_exr(np, root / "probe_rgb.exr", plain, True)
+    try:
+        os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+        import cv2
+
+        img = cv2.imread(str(root / "probe_rgb.exr"), cv2.IMREAD_UNCHANGED)
+        rep["cv2_exr"] = ("no EXR codec" if img is None else
+                          bool(np.array_equal(img, np.stack([plain[c].astype(np.float32) for c in "BGR"], axis=2))))
+    except ImportError:
+        rep["cv2_exr"] = "cv2 not installed"
+    except Exception as e:  # an OpenCV build without the codec raises from imread
+        rep["cv2_exr"] = f"no EXR codec ({type(e).__name__})"
+    rep["ok"] = (all(c["ok"] for c in rep["cases"].values()) and rep["openexr"] in (True, "not installed")
+                 and rep["cv2_exr"] is not False)
+    if not rep["ok"]:
+        failures.append(f"convert_exr: {rep}")
+    return rep
+
+
+def checkpoint_tools_phases(torch, np, cpu_model, counters, failures, card, paths: dict, report: dict) -> None:
+    """parity_check and convert_exr, each emitted as it ends."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        rep = parity_check_phase(torch, np, root, cpu_model, counters, failures)
+        rep.update(seconds=time.perf_counter() - t0, card=card)
+        paths.update({f"parity_check_{name}": r["launches"] for name, r in rep["runs"].items()
+                      if name != "record_cpu"})
+        report["parity_check"] = rep
+        emit({"phase": "parity_check", **rep})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep = convert_exr_phase(np, root, failures)
+        rep.update(seconds=time.perf_counter() - t0, card=card)
+        report["convert_exr"] = rep
+        emit({"phase": "convert_exr", **rep})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="directory for the detailed JSON report")
@@ -3714,6 +4003,11 @@ def main(argv=None) -> int:
     # 15c. serving: build_inference_step; the serve CLI's server over HTTP
     #      (bf16, 5 x 5); the evaluate CLI on its export; a map-requery server
     serving_phases(torch, np, counters, failures, card, paths, report)
+
+    # 15d. the checkpoint tools: parity_check on a flagship .ckpt (record on
+    #      the CPU, compare, cross-check and a planted fault on the card);
+    #      convert_exr on seeded Blender-layout EXRs
+    checkpoint_tools_phases(torch, np, cpu_model, counters, failures, card, paths, report)
 
     # 16. the conditional-generation training step, batch 16
     t0 = time.perf_counter()

@@ -24,7 +24,10 @@ several (`parallel`); serving (`serving`: the inference step, a resident
 scene server and its HTTP daemon, `python -m
 sgam_neurips22_tpu_torch.serve`) and offline evaluation (`evaluate`); the
 AOT export of the inference step (`export_aot`: `torch.export` of the step
-with its weights, reloaded without the model code); with hand-written
+with its weights, reloaded without the model code); the checkpoint-parity
+tool (`parity_check`, against goldens or its torch-functional oracle) and
+the EXR converter (`convert_exr`, over the numpy + zlib reader
+`pipeline.exr`); with hand-written
 CUDA kernels for the z-buffer merge (`ops.zbuffer`), the codeword search
 (`ops.vq`), the flash attention forward and backward (`ops.attention`) and
 the map's grid accumulation (`ops.grid_accumulate`), each a

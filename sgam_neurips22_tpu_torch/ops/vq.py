@@ -86,3 +86,31 @@ def nearest_codeword_cuda(z_flat: torch.Tensor, codebook: torch.Tensor):
 
 
 nearest_codeword.launches = 0
+
+
+def near_ties_ok(z: torch.Tensor, cb: torch.Tensor, idx: torch.Tensor, ref_idx: torch.Tensor,
+                 with_z2: bool = False) -> tuple[int, bool]:
+    """(rows whose indices differ, whether every one is an f32 near-tie):
+    the two codewords' exact (f64) scores e2 - 2 z.e within 1e-6 of the
+    scale of their f32 sums. `with_z2` adds ||z||^2 to that scale, for a
+    search whose f32 distances carry it (the parity oracle's)."""
+    rows = torch.nonzero(idx != ref_idx).flatten()
+    if len(rows) == 0:
+        return 0, True
+    z64 = z[rows].double()
+    a, b = (cb[i[rows].long()].double() for i in (idx, ref_idx))
+    score = [(e * e).sum(1) - 2 * (z64 * e).sum(1) for e in (a, b)]
+    scale = torch.maximum(*((e * e).sum(1) + 2 * (z64 * e).abs().sum(1) for e in (a, b)))
+    if with_z2:
+        scale = scale + (z64 * z64).sum(1)
+    return len(rows), bool(((score[0] - score[1]).abs() <= 1e-6 * scale).all())
+
+
+def distance_gate_share(z: torch.Tensor, cb: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor) -> float:
+    """The largest error of a winning distance against the float64
+    ||z - e_idx||^2, as a share of its gate 1e-6 (||z||^2 + ||e_idx||^2 +
+    2 sum |z e_idx|): the scale of the f32 sums that make the distance."""
+    z64, e64 = z.double(), cb[idx.long()].double()
+    ref = ((z64 - e64) ** 2).sum(1)
+    scale = (z64 * z64).sum(1) + (e64 * e64).sum(1) + 2 * (z64 * e64).abs().sum(1)
+    return float(((dist.double() - ref).abs() / (1e-6 * scale)).max())

@@ -469,14 +469,12 @@ def check_kernels(torch) -> dict:
     """The five kernels on this rank's card against their plain versions,
     at a training shape each: the z-buffer at [16, 131072] (bit-exact),
     the codeword search at P = 4096 against K = 16384 (the plain version's
-    index, or a near tie of it by chip_smoke.near_ties_ok), the attention
+    index, or a near tie of it by ops.vq.near_ties_ok), the attention
     forward, dQ and dK/dV at [16, 256, 512] and [16, 4096, 256] (chip_smoke's
     tolerances: out 1e-4 absolute, lse 1e-5 relative; each gradient within
     1e-4 of its largest)."""
-    import chip_smoke
-
     from sgam_neurips22_tpu_torch.ops import attention as A
-    from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword, nearest_codeword_plain
+    from sgam_neurips22_tpu_torch.ops.vq import near_ties_ok, nearest_codeword, nearest_codeword_plain
     from sgam_neurips22_tpu_torch.ops.zbuffer import zbuffer_min, zbuffer_min_plain
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -490,7 +488,7 @@ def check_kernels(torch) -> dict:
     cb = torch.randn((16384, 256), generator=g, device=dev)
     idx = nearest_codeword(z, cb)[0]
     ref = nearest_codeword_plain(z, cb)[0]
-    mismatched, ok = chip_smoke.near_ties_ok(torch, z, cb, idx, ref)
+    mismatched, ok = near_ties_ok(z, cb, idx, ref)
     res["nearest_codeword"] = {"ok": ok, "index_mismatches": mismatched}
     worst = {"flash_attention_fwd": 0.0, "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
     ok_fwd = ok_bwd = True
