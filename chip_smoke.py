@@ -31,6 +31,14 @@ the device's idle share):
   the run's time): one z-buffer and one codeword launch and 7
   flash-attention launches per step; then parity_batched, one step of 2
   scenes on the card against the CPU;
+- generate_precision: generate's --matmul_precision on the card
+  (`core.device.set_matmul_precision`, as `generate.main` sets it): the
+  f32 flythrough, PRECISION_FRAMES frames at batch 1 and at 8 scenes, in
+  `float32` (TF32 off) and `default` (TF32): ms/frame, device conv ms a
+  frame and the conv kernels' names (TF32 ones in `default`, none in
+  `float32`), the z-buffer and codeword kernels once a step in both, and
+  the first frame's pre-quant latents, RGB, depth and codeword indices of
+  `default` against `float32` (latents within PRECISION_LATENT_TOL);
 - unroll_bf16, unroll_batched_bf16: the same two unrolls with the model
   in bf16 (bench.py's default --model_dtype; FRAMES frames a scene), the same launches, the
   layers beside the f32 unroll's, the batch-1 frames' PSNR against the
@@ -87,7 +95,8 @@ the device's idle share):
   (the frames, merged_pcds.ply and the map's rgbd_integrated_mesh.ply and
   rgbd_integrated_trimesh.ply), then the spiral, cylinder and pose-file
   trajectories, and a run from a template of another size (LANCZOS-resized
-  on load); every file of the reference's layout, PLY sizes that match
+  on load), each with --matmul_precision float32; every file of the
+  reference's layout, PLY sizes that match
   their headers, one z-buffer and one codeword launch a frame, and the
   unroll, export and mesh host times apart; then the exports of a
   coherent-plane map (random-weight depth puts triangles in nearly every
@@ -98,14 +107,17 @@ the device's idle share):
   outputs, its time a call, and the same step on the CPU under parity's
   gates;
 - export_step: `export_aot.export_step` of the flagship clevr-infinite
-  step (f32, on the card) into a temporary directory, loaded in this
-  process (`load_step`): after a warm-up call one call launches the
-  z-buffer and codeword kernels once each and no flash attention, and
-  equals the eager step bit for bit; loaded again in a fresh process that
-  cannot import jax, the JAX package or the port's models, pipeline,
-  serving and training: the same launches, and its outputs within the
-  inference step's gates of the eager step (whether bit-equal is
-  reported); export, save and load seconds, the artifact's MB, ms a call
+  step (f32, traced on the card) for the platforms cuda and cpu into a
+  temporary directory, loaded in this process (`load_step`): after a
+  warm-up call one call launches the z-buffer and codeword kernels once
+  each and no flash attention, and equals the eager step bit for bit;
+  loaded again in a fresh process that cannot import jax, the JAX package
+  or the port's models, pipeline, serving and training: on the card the
+  same launches, and its outputs within the inference step's gates of the
+  eager step (whether bit-equal is reported); on the CPU (a second fresh
+  process, `load_step(device="cpu")`) no kernel launch, and its outputs
+  within the same gates of the port's eager step on the CPU; export, save
+  and load seconds, the artifact's MB, ms a call
   of the loaded program and of the eager step in turns (CUDA events), and
   the host microseconds a z-buffer and a codeword call spends in the
   custom op's dispatch (op_overhead);
@@ -136,8 +148,13 @@ the device's idle share):
   multilayer renders (HALF and FLOAT, ZIP and NONE) written here from
   seeded arrays: the depth and instance files equal to the arrays (HALF as
   np.float16 rounds them), the PNGs to their sRGB; whether this machine
-  has OpenEXR or an EXR-capable cv2 is probed, and either is held against
-  the port's reader;
+  has OpenEXR is probed, and where it is held against the port's reader;
+  then PIZ and PXR24 files (HALF and FLOAT, 256 wide, 256 or 200 rows)
+  written by this machine's cv2 (OpenEXR inside), which must be able to
+  write them: each read by the port bit-equal to cv2.imread, PXR24 FLOAT
+  also equal to OpenEXR's 24-bit rounding of the written array, a PIZ
+  FLOAT file whose chunks reach the modular wavelet, and the seconds a
+  file of the native and the numpy PIZ decoders;
 - train: the conditional-generation GAN training step as `bench.py
   --config train_conditional` defines it (batch 16, n_src 2, n_embed
   16384, remat, flash attention, disc_start 0, Adam (0.5, 0.9), LPIPS with
@@ -940,6 +957,8 @@ def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
         "profiled_wall_s": wall, "device_busy_ms_per_frame": busy_s * 1e3 / frames if rows else None,
         "device_idle_share": 1.0 - busy_s / timed_s if rows else None,
         "ms_per_frame_by_layer": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "conv_kernels": sorted({k[:120] for _, k, _ in rows
+                                if next(lab for pat, lab in KERNEL_GROUPS if re.search(pat, k)).startswith("conv")}),
         "top": [{"kernel": k[:120], "ms": us / 1e3, "calls": n} for us, k, n in rows[:25]],
     }
 
@@ -2013,7 +2032,8 @@ def generate_phase(torch, np, cpu_model, counters, failures, model16=None, seeds
                 out_dir = root / name
                 templates = root / ("templates_resize" if name == "template_resize" else "templates")
                 argv = ["--dataset", "clevr-infinite", "--ckpt", str(root / "last.ckpt"), "--template_dir",
-                        str(templates), "--output_dir", str(out_dir), "--resolution", str(H), *flags]
+                        str(templates), "--output_dir", str(out_dir), "--resolution", str(H),
+                        "--matmul_precision", "float32", *flags]
                 if name == "pose_file":
                     argv += ["--pose_file", str(root / "cam0_to_world.txt")]
                 for fn in counters:
@@ -2117,6 +2137,87 @@ def unroll_phase(torch, unroll, frames: int, counters, want: dict, failures, nam
     prof = profile_unroll(torch, unroll, frames, dt)
     rep.update({k: v for k, v in prof.items() if k != "top"})
     return (rgb, depth), rep, prof
+
+
+PRECISION_FRAMES = 4  # frames of each generate_precision unroll, at batch 1 and at SCENES scenes
+PRECISION_MODES = ("float32", "default")  # generate --matmul_precision: TF32 off, TF32 on
+# max |diff| of the first frame's pre-quant latents (largest ~1.2), default against float32: 1.84e-3 at
+# batch 1 and 2.17e-3 at 8 scenes were measured (NVIDIA H100 80GB HBM3, 700.00 W), TF32's 10-bit
+# significand through the encoder's convolutions
+PRECISION_LATENT_TOL = 1e-2
+
+
+def precision_phase(torch, np, model, seeds, seeds_batch, counters, failures, card) -> dict:
+    """generate's --matmul_precision on the card: `set_matmul_precision`
+    (as `generate.main` sets it) before the unroll is built, then
+    unroll_phase of the f32 flythrough, PRECISION_FRAMES frames at batch 1
+    and at SCENES scenes, in each of PRECISION_MODES. Reports ms/frame, the
+    profile's conv ms a frame and its conv kernels' names, the launches, and
+    for the first frame the max |diff| of `default`'s pre-quant latents, RGB
+    and depth against `float32`'s, and how many of its codeword indices
+    differ (argmin in f32 on the CPU of each mode's latents). Gates: finite
+    frames and the launches (unroll_phase), TF32 conv kernels in `default`
+    and no kernel named tf32 in `float32`, the latents within
+    PRECISION_LATENT_TOL. The mode is `float32` again afterwards."""
+    import re
+
+    from sgam_neurips22_tpu_torch.core.device import set_matmul_precision
+    from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword_plain
+    from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration, SceneGenConfig
+
+    cfg = SceneGenConfig(dataset="clevr-infinite", output_dim=(PRECISION_FRAMES + 1, 1), topk=1,
+                         image_resolution=(H, W))
+    codebook = model.codebook.detach().cpu()
+    rep = {"frames": PRECISION_FRAMES, "card": card}
+    try:
+        for case, scenes in (("batch1", 1), (f"scenes{SCENES}", SCENES)):
+            first, rep[case] = {}, {}
+            for mode in PRECISION_MODES:
+                set_matmul_precision(mode)
+                gen = InfiniteSceneGeneration(model, cfg, seeds, device="cuda")
+                if scenes == 1:
+                    unroll, prepare = gen.scene_expansion, gen.reset
+                else:
+                    unroll, prepare = (lambda: gen.scene_expansion_batched(seeds_batch)), (lambda: None)
+                want = {"zbuffer_min": PRECISION_FRAMES, "nearest_codeword": PRECISION_FRAMES,
+                        "flash_attention_fwd": 0 if scenes == 1 else 7 * PRECISION_FRAMES,
+                        "flash_attention_dq": 0, "flash_attention_dkv": 0}
+                latents = []  # the first quant_conv output: the first frame's pre-quant latents
+                hook = model.quant_conv.register_forward_hook(
+                    lambda mod, inp, out: latents.append(out.detach().cpu()) if not latents else None)
+                try:
+                    (rgb, depth), run, _ = unroll_phase(torch, unroll, scenes * PRECISION_FRAMES, counters, want,
+                                                        failures, f"generate_precision {case} {mode}", prepare,
+                                                        per_step=scenes)
+                finally:
+                    hook.remove()
+                z = latents[0].permute(0, 2, 3, 1).reshape(-1, codebook.shape[1])
+                first[mode] = {"latents": latents[0], "indices": nearest_codeword_plain(z, codebook)[0],
+                               "rgb": (rgb[1] if scenes == 1 else rgb[:, 1]).cpu(),
+                               "depth": (depth[1] if scenes == 1 else depth[:, 1]).cpu()}
+                conv = run.get("conv_kernels", [])
+                run["conv_ms_per_frame"] = run["ms_per_frame_by_layer"].get("conv (cuDNN: implicit GEMM, FFT)")
+                run["tf32_conv_kernels"] = [k for k in conv if re.search("tf32", k, re.I)]
+                run["names_ok"] = (bool(run["tf32_conv_kernels"]) if mode == "default"
+                                   else not any(re.search("tf32", k, re.I) for k in conv))
+                if not run["names_ok"]:
+                    failures.append(f"generate_precision {case} {mode}: conv kernels {conv}")
+                rep[case][mode] = run
+                del gen, rgb, depth
+            a, b = first["default"], first["float32"]
+            diff = {k: float((a[k] - b[k]).abs().max()) for k in ("latents", "rgb", "depth")}
+            rep[case]["first_frame"] = {
+                **{f"{k}_max_abs_diff": v for k, v in diff.items()},
+                "latents_max_abs": float(b["latents"].abs().max()),
+                "index_mismatches": int((a["indices"] != b["indices"]).sum()), "indices": int(a["indices"].numel()),
+                "latent_tol": PRECISION_LATENT_TOL}
+            if not diff["latents"] <= PRECISION_LATENT_TOL:
+                failures.append(f"generate_precision {case}: first frame's latents {diff} "
+                                f"(tolerance {PRECISION_LATENT_TOL})")
+            torch.cuda.empty_cache()
+    finally:
+        set_matmul_precision("float32")
+    return rep
 
 
 # ---------------------------------------------------------------- the trainer
@@ -2376,7 +2477,7 @@ def generate_config_phase(torch, np, run_dir: str, counters, failures) -> dict:
     t0 = time.perf_counter()
     generate.main(["--config", os.path.join(run_dir, "config.yaml"), "--ckpt", run_dir, "--template_dir",
                    str(root / "templates"), "--rows", "4", "--cols", "1", "--output_dir", str(out),
-                   "--resolution", str(H), "--device", "cuda"])
+                   "--resolution", str(H), "--device", "cuda", "--matmul_precision", "float32"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -2979,22 +3080,27 @@ import time
 import torch
 from sgam_neurips22_tpu_torch.export_aot import load_step
 from sgam_neurips22_tpu_torch.ops import attention, vq, zbuffer
-path, root = sys.argv[1:]
+path, root, device = sys.argv[1:]
 t0 = time.perf_counter()
-step = load_step(path)
+step = load_step(path, device=device)
 load_s = time.perf_counter() - t0
-inputs = [x.cuda() for x in torch.load(root + "/inputs.pt")]
+inputs = [x.to(device) for x in torch.load(root + "/inputs.pt")]
 step(*inputs)
-torch.cuda.synchronize()
+if device == "cuda":
+    torch.cuda.synchronize()
 counters = (zbuffer.zbuffer_min, vq.nearest_codeword, attention.flash_attention_fwd, attention.flash_attention_dq,
             attention.flash_attention_dkv)
 for f in counters:
     f.launches = 0
+t0 = time.perf_counter()
 rgb, depth = step(*inputs)
-torch.cuda.synchronize()
+if device == "cuda":
+    torch.cuda.synchronize()
+call_s = time.perf_counter() - t0
 imported = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in {blocked!r})]
-torch.save({{"rgb": rgb.cpu(), "depth": depth.cpu(), "load_seconds": load_s, "imported": imported,
-            "launches": {{f.__name__: f.launches for f in counters}}}}, root + "/fresh.pt")
+torch.save({{"rgb": rgb.cpu(), "depth": depth.cpu(), "load_seconds": load_s, "call_seconds": call_s,
+            "imported": imported, "launches": {{f.__name__: f.launches for f in counters}}}},
+           root + "/fresh_" + device + ".pt")
 """
 OVERHEAD_CALLS, OVERHEAD_ROUNDS = 200, 5
 
@@ -3037,18 +3143,30 @@ def op_overhead(torch) -> dict:
     return out
 
 
+def fresh_report(torch, fresh: dict, rgb, depth) -> dict:
+    """A fresh process's outputs against (rgb, depth) on the CPU."""
+    return {"load_seconds": fresh["load_seconds"], "call_seconds": fresh["call_seconds"],
+            "launches": fresh["launches"], "imported": fresh["imported"],
+            "bit_equal": bool(torch.equal(fresh["rgb"], rgb) and torch.equal(fresh["depth"], depth)),
+            "rgb_max_abs_err": float((fresh["rgb"] - rgb).abs().max()),
+            "depth_max_rel_err": float(((fresh["depth"] - depth).abs() / depth.abs().clamp(min=1.0)).max())}
+
+
 def export_step_phase(torch, counters, failures) -> dict:
     """`export_aot.export_step` of the flagship clevr-infinite step (f32,
-    256^2, 5 sources) on the card into a temporary directory (the
-    artifact, ~290 MB, is not kept), loaded in this process and in a fresh
-    one that cannot import EXPORT_BLOCKED, each called after a warm-up
-    call with its launches counted (one z-buffer, one codeword, no flash
-    attention). In-process the program must equal the eager step bit for
-    bit; the fresh process's outputs must meet inference_step_phase's
-    gates (RGB atol 1e-3, depth 1e-3 relative of max(depth, 1)) against the
-    eager step, and whether they are bit-equal is reported (cuDNN may pick
-    other algorithms in another process); the fresh process loads while
-    this one does, and ends before anything is timed. Also: export, load
+    256^2, 5 sources) traced on the card for the platforms cuda and cpu
+    into a temporary directory (the artifact, ~290 MB, is not kept), loaded
+    in this process and in two fresh ones that cannot import
+    EXPORT_BLOCKED, one on the card and one on the CPU, each called after a
+    warm-up call with its launches counted (on the card one z-buffer, one
+    codeword, no flash attention; on the CPU none). In-process the program
+    must equal the eager step bit for bit; the fresh processes' outputs
+    must meet inference_step_phase's gates (RGB atol 1e-3, depth 1e-3
+    relative of max(depth, 1)) against the eager step on their device (on
+    the CPU: `build_inference_step(device="cpu")`, the same weights and
+    batch), and whether they are bit-equal is reported (cuDNN may pick
+    other algorithms in another process); the fresh processes load while
+    this one does, and end before anything is timed. Also: export, load
     and fresh seconds, the artifact's MB, the graph's calls (and its dtype asserts),
     ms a call by CUDA events of the eager step, the loaded program and the
     loaded program under inference mode (as the eager step runs) in turns,
@@ -3068,7 +3186,7 @@ def export_step_phase(torch, counters, failures) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "flagship_step.pt2")
         t0 = time.perf_counter()
-        exported = export_step(cfg, path, device="cuda")
+        exported = export_step(cfg, path, device="cuda", platforms=("cuda", "cpu"))
         rep["export_seconds"] = time.perf_counter() - t0
         rep["artifact_mb"] = os.path.getsize(path) / 1e6
         targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
@@ -3079,10 +3197,17 @@ def export_step_phase(torch, counters, failures) -> dict:
         # the fresh process loads while this one does (both mostly host
         # work); it is done before anything here is timed
         t_fresh = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-c", EXPORT_LOAD_SIDE.format(blocked=EXPORT_BLOCKED), path, tmp],
-                                cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
+        procs = {device: subprocess.Popen([sys.executable, "-c", EXPORT_LOAD_SIDE.format(blocked=EXPORT_BLOCKED),
+                                           path, tmp, device], cwd=Path(__file__).resolve().parent,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for device in ("cuda", "cpu")}
         try:
+            fn_c, (model_c, batch_c, gen_c) = build_inference_step(cfg, image_size=cfg.ddconfig.resolution * 4,
+                                                                   device="cpu")
+            t0 = time.perf_counter()
+            rgb_ce, depth_ce = fn_c(model_c, batch_c, gen_c)  # the CPU eager step
+            rep["cpu_eager_seconds"] = time.perf_counter() - t0
+            del model_c
             t0 = time.perf_counter()
             step = load_step(path)
             rep["load_seconds"] = time.perf_counter() - t0
@@ -3095,16 +3220,18 @@ def export_step_phase(torch, counters, failures) -> dict:
             rep["launches"] = {f.__name__: f.launches for f in counters}
             rep["bit_equal"] = bool(torch.equal(rgb, rgb_e) and torch.equal(depth, depth_e))
             rep["finite"] = bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())
-            _, err = proc.communicate(timeout=600)
+            errs = {device: proc.communicate(timeout=600)[1] for device, proc in procs.items()}
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         rep["fresh_seconds"] = time.perf_counter() - t_fresh
-        if proc.returncode != 0:
-            failures.append(f"export_step: the fresh process exited {proc.returncode}: {err[-3000:]}")
+        bad = {device: (proc.returncode, errs[device][-3000:]) for device, proc in procs.items() if proc.returncode}
+        if bad:
+            failures.append(f"export_step: fresh processes failed: {bad}")
             return rep
-        fresh = torch.load(os.path.join(tmp, "fresh.pt"))
+        fresh = {device: torch.load(os.path.join(tmp, f"fresh_{device}.pt")) for device in procs}
 
         def inference_mode_call():
             with torch.inference_mode():
@@ -3120,17 +3247,15 @@ def export_step_phase(torch, counters, failures) -> dict:
                    device_ms=device_ms(torch, calls["exported"], iters=5, warmup=1),
                    eager_device_ms=device_ms(torch, calls["eager"], iters=5, warmup=1))
         del step
-    rgb_c, depth_c = rgb_e.cpu(), depth_e.cpu()
-    rep["fresh"] = {"load_seconds": fresh["load_seconds"], "launches": fresh["launches"],
-                    "imported": fresh["imported"],
-                    "bit_equal": bool(torch.equal(fresh["rgb"], rgb_c) and torch.equal(fresh["depth"], depth_c)),
-                    "rgb_max_abs_err": float((fresh["rgb"] - rgb_c).abs().max()),
-                    "depth_max_rel_err": float(((fresh["depth"] - depth_c).abs() / depth_c.abs().clamp(min=1.0)).max())}
+    rep["platforms"] = ["cuda", "cpu"]
+    rep["fresh"] = fresh_report(torch, fresh["cuda"], rgb_e.cpu(), depth_e.cpu())
+    rep["fresh_cpu"] = fresh_report(torch, fresh["cpu"], rgb_ce, depth_ce)
     rep["op_overhead"] = op_overhead(torch)
-    f = rep["fresh"]
+    no_launches = {name: 0 for name in want_launches(1)}
     rep["ok"] = (rep["finite"] and rep["bit_equal"] and rep["launches"] == want_launches(1)
-                 and f["launches"] == want_launches(1) and not f["imported"] and f["rgb_max_abs_err"] <= 1e-3
-                 and f["depth_max_rel_err"] <= 1e-3)
+                 and rep["fresh"]["launches"] == want_launches(1) and rep["fresh_cpu"]["launches"] == no_launches
+                 and all(not f["imported"] and f["rgb_max_abs_err"] <= 1e-3 and f["depth_max_rel_err"] <= 1e-3
+                         for f in (rep["fresh"], rep["fresh_cpu"])))
     if not rep["ok"]:
         failures.append(f"export_step: {rep}")
     return rep
@@ -3568,6 +3693,92 @@ def write_exr(np, path: Path, channels: dict, zip_lines: bool) -> None:
     path.write_bytes(head + struct.pack(f"<{len(chunks)}Q", *offsets) + b"".join(chunks))
 
 
+EXR_CV2_CASES = (  # (file, compression, pixel type, rows, content): written by cv2 (OpenEXR inside), 256 wide
+    ("piz_half", "PIZ", "HALF", 256, "smooth"), ("piz_float", "PIZ", "FLOAT", 200, "ramp"),
+    ("pxr24_half", "PXR24", "HALF", 200, "smooth"), ("pxr24_float", "PXR24", "FLOAT", 256, "smooth"))
+
+
+def float24(np, a):
+    """OpenEXR's PXR24 rounding of float32 (floatToFloat24), as float32:
+    the significand to 15 bits, half up in magnitude, truncated where that
+    would overflow (these arrays hold no NaN or infinity)."""
+    u = a.view(np.uint32).astype(np.int64)
+    e, m = u & 0x7F800000, u & 0x007FFFFF
+    i = ((e | m) + (m & 0x80)) >> 8
+    i = np.where(i >= 0x7F8000, (e | m) >> 8, i)
+    return ((((u & 0x80000000) >> 8) | i) << 8).astype(np.uint32).view(np.float32)
+
+
+def exr_chunks(np, path: Path) -> list:
+    """(first row, stored bytes, raw bytes) of each chunk of a scanline EXR."""
+    import struct
+
+    from sgam_neurips22_tpu_torch.pipeline import exr
+
+    data = path.read_bytes()
+    buf = exr._Bytes(data, str(path))
+    hdr = exr.read_header(buf)
+    x0, y0, x1, y1 = hdr.data_window
+    w, h, lines = x1 - x0 + 1, y1 - y0 + 1, exr.LINES[hdr.compression]
+    n = (h + lines - 1) // lines
+    out = []
+    for off in struct.unpack(f"<{n}Q", buf.take(8 * n)):
+        y, size = struct.unpack_from("<ii", data, off)
+        rows = min(lines, h - (y - y0))
+        out.append((y - y0, size, rows * w * sum(c.dtype.itemsize for c in hdr.channels)))
+    return out
+
+
+def cv2_exr_cases(np, root: Path, failures) -> dict:
+    """EXR_CV2_CASES written by cv2.imwrite and read by the port
+    (`read_exr`, native and numpy PIZ decoders) against cv2.imread."""
+    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+    import cv2
+
+    from sgam_neurips22_tpu_torch.pipeline import exr
+
+    exr._piz_lib()  # built before anything is timed
+    rng = np.random.default_rng(SEED + 29)
+    out = {}
+    for name, compression, ptype, rows, content in EXR_CV2_CASES:
+        if content == "ramp":  # consecutive float bit patterns: more than 2^14 words a chunk, and they compress
+            a = (0x3F800000 + np.arange(rows * EXR_SIDE * 3, dtype=np.uint32)).view(np.float32)
+            a = a.reshape(rows, EXR_SIDE, 3)
+        else:
+            yy, xx = np.mgrid[0:rows, 0:EXR_SIDE]
+            a = np.stack([0.5 + 0.4 * np.sin(yy / (5.0 + c) + c) * np.cos(xx / 7.0) for c in range(3)], axis=2)
+            a = (a + rng.uniform(0, 0.01, a.shape)).astype(np.float32)
+        path = root / f"{name}.exr"
+        if not cv2.imwrite(str(path), a, [cv2.IMWRITE_EXR_TYPE, getattr(cv2, f"IMWRITE_EXR_TYPE_{ptype}"),
+                                          cv2.IMWRITE_EXR_COMPRESSION,
+                                          getattr(cv2, f"IMWRITE_EXR_COMPRESSION_{compression}")]):
+            failures.append(f"convert_exr: cv2 could not write {name}")
+            continue
+        theirs = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        case = {"compression": compression, "pixel_type": ptype, "rows": rows, "bytes": path.stat().st_size}
+        for native in (True, False):
+            t0 = time.perf_counter()
+            hdr, planes = exr.read_exr(str(path), native=native)
+            case["native_seconds" if native else "numpy_seconds"] = time.perf_counter() - t0
+            ours = np.stack([planes[c].astype(np.float32) for c in "BGR"], axis=2)
+            case["equal_cv2" if native else "numpy_equal_cv2"] = bool(
+                hdr.compression == compression and np.array_equal(ours.view(np.uint32), theirs.view(np.uint32)))
+        chunks = exr_chunks(np, path)
+        case["chunks"], case["compressed_chunks"] = len(chunks), sum(size < raw for _, size, raw in chunks)
+        ok = case["equal_cv2"] and case["numpy_equal_cv2"] and case["compressed_chunks"] > 0
+        if ptype == "FLOAT" and compression == "PXR24":
+            case["equal_float24"] = bool(np.array_equal(theirs.view(np.uint32), float24(np, a).view(np.uint32)))
+            ok = ok and case["equal_float24"]
+        if compression == "PIZ":  # the modular wavelet runs where a chunk holds more than 2^14 distinct words
+            words = a.astype(np.float16 if ptype == "HALF" else np.float32).view(np.uint16).reshape(rows, -1)
+            case["modular_compressed_chunks"] = sum(
+                size < raw and len(np.union1d(words[y:y + 32], [0])) > 1 << 14 for y, size, raw in chunks)
+            ok = ok and (content != "ramp" or case["modular_compressed_chunks"] > 0)
+        case["ok"] = bool(ok)
+        out[name] = case
+    return out
+
+
 def convert_exr_phase(np, root: Path, failures) -> dict:
     """`python -m sgam_neurips22_tpu_torch.convert_exr` (its main) on this
     machine's host: EXR_CASES, each a 256^2 Blender multilayer render
@@ -3627,12 +3838,14 @@ def convert_exr_phase(np, root: Path, failures) -> dict:
         img = cv2.imread(str(root / "probe_rgb.exr"), cv2.IMREAD_UNCHANGED)
         rep["cv2_exr"] = ("no EXR codec" if img is None else
                           bool(np.array_equal(img, np.stack([plain[c].astype(np.float32) for c in "BGR"], axis=2))))
+        rep["cv2_cases"] = cv2_exr_cases(np, root, failures)
     except ImportError:
         rep["cv2_exr"] = "cv2 not installed"
-    except Exception as e:  # an OpenCV build without the codec raises from imread
-        rep["cv2_exr"] = f"no EXR codec ({type(e).__name__})"
+    except Exception as e:  # an OpenCV build without the codec raises from imread or imwrite
+        rep["cv2_exr"] = f"no EXR codec ({type(e).__name__}: {e})"
+    cv2_ok = [c["ok"] for c in rep.get("cv2_cases", {}).values()]
     rep["ok"] = (all(c["ok"] for c in rep["cases"].values()) and rep["openexr"] in (True, "not installed")
-                 and rep["cv2_exr"] is not False)
+                 and rep["cv2_exr"] is True and len(cv2_ok) == len(EXR_CV2_CASES) and all(cv2_ok))
     if not rep["ok"]:
         failures.append(f"convert_exr: {rep}")
     return rep
@@ -3778,6 +3991,15 @@ def main(argv=None) -> int:
     emit({"phase": "parity_batched", "seconds": time.perf_counter() - t0, **parity_b})
     del gen_b
     torch.cuda.empty_cache()
+
+    # 6b. generate's --matmul_precision: the f32 flythrough at batch 1 and
+    #     at SCENES scenes in float32 (TF32 off) and default (TF32) mode
+    t0 = time.perf_counter()
+    report["generate_precision"] = precision_phase(torch, np, gen.model, seeds, seeds_batch, counters, failures,
+                                                   card)
+    report["generate_precision"]["seconds"] = time.perf_counter() - t0
+    paths["generate_precision"] = report["generate_precision"]["batch1"]["default"]["launches"]
+    emit({"phase": "generate_precision", **report["generate_precision"]})
 
     # 7. the flythrough at bf16 (bench.py's default --model_dtype), same
     #    weights and seeds: launches, time and layers beside the f32

@@ -3,7 +3,7 @@ the port's counterpart of `tools/export_aot.py`, with its flags:
 
     python -m sgam_neurips22_tpu_torch.export_aot --out flagship_step.pt2 \\
         [--dataset clevr-infinite] [--ckpt trained_models/clevr-infinite/last.ckpt] \\
-        [--topk 1] [--compute_dtype float32] [--device cuda]
+        [--topk 1] [--compute_dtype float32] [--platforms cuda [cpu]]
 
 It serialises the per-frame inference function that
 `serving.build_inference_step` builds (warp-conditioned encode -> nearest
@@ -27,17 +27,33 @@ JAX's export), and at topk > 1 the Gumbel noise [P, 1, topk] last, drawn by
 the caller (`models.vqgan.quantize.gumbel_noise`): a torch.Generator cannot
 travel in an artifact, as JAX's artifact takes its rng key instead. The
 weights travel in the artifact (the flagship's 72.1 M parameters, about 288
-MB in f32); `load_step(path, state_dict)` swaps in others by name. An
-artifact runs on the device it was exported on: `torch.export` fixes the
-device of the tensors the step creates.
+MB in f32); `load_step(path, state_dict)` swaps in others by name.
+
+Platforms: `--platforms cuda cpu` (JAX's `--platforms tpu cpu`) makes one
+artifact for both. The step is traced on the first platform; the artifact
+stores its weights and constants on the CPU and records its platforms, and
+`load_step(path, device=...)` moves the program to a listed device
+(`torch.export.passes.move_to_device_pass`: weights, constants and every
+device the graph names). The hand kernels' custom ops have a CUDA and a CPU
+implementation, so the program launches the kernels on the card and runs
+their plain versions on the CPU. A device the artifact was not exported for
+is refused, as JAX's `Exported` refuses a platform it was not lowered for;
+a step traced on the CPU may still take another route on the card than one
+traced there, so export for the card on the card.
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import json
 import os
+import zipfile
 
 import torch
+from torch.export.passes import move_to_device_pass
 
+PLATFORMS = ("cuda", "cpu")
+PLATFORMS_FILE = "sgam_platforms.json"  # the artifact's record of its platforms (an extra file of the archive)
 INPUTS = ("dst_img", "dst_depth", "src_imgs", "src_depths", "Ks", "R_rels", "t_rels", "src_masks")
 
 
@@ -65,15 +81,22 @@ def gumbel_shape(model_cfg, topk: int, image_size: int) -> tuple:
 
 
 def export_step(model_cfg, out_path: str, device: str | torch.device = "cuda", topk: int = 1,
-                model: torch.nn.Module | None = None) -> torch.export.ExportedProgram:
-    """Export the inference step of `model_cfg` on `device` at the example
-    batch's shapes (256^2 for the flagship: 4x the model's resolution, as
-    JAX's export) to `out_path`, with the step's seeded weights or
-    `model`'s (a VQModel of `model_cfg`); returns the ExportedProgram. At
-    topk > 1 the program takes the Gumbel noise as a last input."""
+                model: torch.nn.Module | None = None, platforms=None) -> torch.export.ExportedProgram:
+    """Export the inference step of `model_cfg` at the example batch's
+    shapes (256^2 for the flagship: 4x the model's resolution, as JAX's
+    export) to `out_path`, with the step's seeded weights or `model`'s (a
+    VQModel of `model_cfg`); returns the ExportedProgram, on the device it
+    was traced on, `device`. `platforms` (default: `device`'s type alone)
+    are the devices the artifact may load on, each of PLATFORMS, the first
+    `device`'s. At topk > 1 the program takes the Gumbel noise as a last
+    input."""
     from sgam_neurips22_tpu_torch.models.vqgan.quantize import gumbel_noise
     from sgam_neurips22_tpu_torch.serving import build_inference_step
 
+    platforms = list(platforms or [torch.device(device).type])
+    if platforms[0] != torch.device(device).type or any(p not in PLATFORMS for p in platforms) \
+            or len(set(platforms)) < len(platforms):
+        raise ValueError(f"platforms {platforms}: each of {PLATFORMS} once, the first {device!r}'s")
     image_size = model_cfg.ddconfig.resolution * 4
     fn, (own, batch, generator) = build_inference_step(model_cfg, topk=topk, image_size=image_size, device=device)
     dev = batch["dst_img"].device
@@ -85,23 +108,51 @@ def export_step(model_cfg, out_path: str, device: str | torch.device = "cuda", t
         args += (gumbel_noise(gumbel_shape(model_cfg, topk, image_size), generator, dev),)
     with torch.no_grad():
         exported = torch.export.export(module, args)
-    torch.export.save(exported, out_path)
-    print(f"wrote {out_path}: {os.path.getsize(out_path) / 1e6:.1f} MB, device={dev}, inputs={len(args)}")
+    stored = exported
+    if dev.type != "cpu":  # stored on the CPU, so that any listed platform can read it
+        stored = move_to_device_pass(copy.deepcopy(exported), "cpu")
+    torch.export.save(stored, out_path, extra_files={PLATFORMS_FILE: json.dumps(platforms)})
+    print(f"wrote {out_path}: {os.path.getsize(out_path) / 1e6:.1f} MB, traced on {dev}, platforms={platforms}, "
+          f"inputs={len(args)}")
     return exported
 
 
-def load_step(path: str, state_dict: dict | None = None) -> torch.nn.Module:
-    """The exported step at `path` as a callable module: step(*inputs) ->
-    (rgb, depth). `state_dict`, a VQModel state_dict (tensors or arrays,
-    as `core.state_dict.from_jax_params` gives), replaces the program's
-    weights by name, strictly (every weight, and nothing else). TF32 is
-    switched off, as every entry point of the port does. Imports the op
-    registrations and nothing of the model."""
+def artifact_platforms(path: str) -> list | None:
+    """The platforms an artifact of `export_step` records, read from its
+    archive without loading the program; None for an artifact without a
+    record (written before there was one)."""
+    with zipfile.ZipFile(path) as archive:
+        names = [n for n in archive.namelist() if n.endswith(f"/extra/{PLATFORMS_FILE}")]
+        return json.loads(archive.read(names[0])) if names else None
+
+
+def load_step(path: str, state_dict: dict | None = None, device: str | torch.device | None = None) -> torch.nn.Module:
+    """The exported step at `path` as a callable module on `device` (the
+    first of its platforms by default): step(*inputs) -> (rgb, depth).
+    A device whose type the artifact was not exported for raises, naming
+    its platforms. `state_dict`, a VQModel state_dict (tensors or arrays, as
+    `core.state_dict.from_jax_params` gives), replaces the program's
+    weights by name, strictly (every weight, and nothing else). The
+    process's matmul precision mode (`float32` unless set) is applied, as
+    every entry point of the port does. Imports the op registrations and
+    nothing of the model."""
     from sgam_neurips22_tpu_torch.core.device import resolve_device
     from sgam_neurips22_tpu_torch.ops import library  # noqa: F401  (torch.ops.sgam before the load)
 
-    step = torch.export.load(path).module().requires_grad_(False)  # inference: no autograd graph
-    resolve_device(next(step.parameters()).device)  # f32 parity mode (TF32 off), as the exporting process ran
+    platforms, exported = artifact_platforms(path), None
+    if platforms is None:  # an artifact without a record: the device its weights were saved on
+        exported = torch.export.load(path)
+        platforms = sorted({t.device.type for t in exported.state_dict.values()})
+    want = torch.device(device if device is not None else platforms[0])
+    if want.type not in platforms:
+        raise ValueError(f"{path} was exported for platforms {platforms}, not {want.type!r}; export it again with "
+                         f"--platforms {' '.join(platforms + [want.type])}")
+    dev = resolve_device(want)
+    if exported is None:
+        exported = torch.export.load(path)
+    if any(t.device != dev for t in exported.state_dict.values()):
+        exported = move_to_device_pass(exported, str(dev))
+    step = exported.module().requires_grad_(False)  # inference: no autograd graph
     if state_dict is not None:
         step.load_state_dict({f"model.{name}": torch.as_tensor(t) for name, t in state_dict.items()}, strict=True)
     return step
@@ -116,10 +167,14 @@ def main(argv=None) -> None:
                         "reference .ckpt, a JAX .pkl or a port run); seeded random weights without it")
     p.add_argument("--topk", type=int, default=1)
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device the step is exported on; torch.export fixes the device of the tensors the "
-                        "step creates, so the artifact runs on this device only")
+    p.add_argument("--platforms", nargs="+", choices=PLATFORMS, default=None,
+                   help="devices the artifact loads on (default cuda); the step is traced on the first, e.g. "
+                        "--platforms cuda cpu for a dual artifact")
+    p.add_argument("--device", choices=PLATFORMS, default=None, help="the same as --platforms DEVICE")
     args = p.parse_args(argv)
+    if args.platforms and args.device:
+        p.error("give --platforms or --device, not both")
+    platforms = args.platforms or [args.device or "cuda"]
 
     from sgam_neurips22_tpu_torch.serving import flagship_config
 
@@ -133,7 +188,7 @@ def main(argv=None) -> None:
         model = VQModel(cfg)
         load_into(model, random_state_dict(model, 0))
         load_inference_params(args.ckpt, model)
-    export_step(cfg, args.out, device=args.device, topk=args.topk, model=model)
+    export_step(cfg, args.out, device=platforms[0], topk=args.topk, model=model, platforms=platforms)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,11 @@ Usage:
       --template_dir templates/clevr-infinite [--use_rgbd_integration] [--device cpu]
 
 Differences from `generate.py`: `--device` picks the card (`cuda`, the
-default) or the CPU; there is no `--matmul_precision`, because the port
-keeps TF32 off (`core.device.resolve_device`). `--config` takes the model
+default) or the CPU. `--matmul_precision` takes JAX's four choices and its
+default, `default`, which runs f32 convolutions and matmuls in TF32 on the
+card, as XLA does on a GPU (`core.device.set_matmul_precision`: the
+mapping); `float32` is the port's bit-parity mode. The mode holds while
+`main` runs and is restored when it returns. `--config` takes the model
 configuration from a trained-model YAML (a run's config.yaml), and
 `--ckpt` may be a port run directory. Without `--ckpt` the model takes
 seeded random weights (`core.state_dict.random_state_dict`, seed 0).
@@ -22,6 +25,7 @@ import os
 from dataclasses import replace
 
 from sgam_neurips22_tpu_torch.core.config import load_yaml
+from sgam_neurips22_tpu_torch.core.device import MATMUL_PRECISIONS, matmul_precision, set_matmul_precision
 from sgam_neurips22_tpu_torch.core.state_dict import load_into, random_state_dict
 from sgam_neurips22_tpu_torch.models.vqgan.model import VQModel, VQModelConfig
 from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration, SceneGenConfig
@@ -51,6 +55,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num_src", type=int, default=None)
     p.add_argument("--trajectory", default="grid", choices=["grid", "spiral", "cylinder", "trajectory"])
     p.add_argument("--pose_file", default=None)
+    p.add_argument("--matmul_precision", default="default", choices=MATMUL_PRECISIONS,
+                   help="f32 matmul and convolution precision on the card: float32 / highest = TF32 off, the "
+                        "bit-parity mode; default = TF32, as XLA on a GPU; bfloat16 = TF32 too (the card's "
+                        "torch has no bf16 mode for f32 tensors, and TF32 keeps at least bf16's mantissa); "
+                        "no effect on the CPU")
     p.add_argument("--splat_stride", type=int, default=1, help="splat every s-th source pixel (1 = reference)")
     p.add_argument("--tsdf_integrate_stride", type=int, default=1, help="map re-query: fuse every s-th ray")
     p.add_argument("--tsdf_render_chunk", type=int, default=0,
@@ -63,6 +72,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     opt = parse_args(argv)
+    previous = matmul_precision()
+    set_matmul_precision(opt.matmul_precision)  # before anything is built
+    try:
+        _generate(opt)
+    finally:
+        set_matmul_precision(previous)
+
+
+def _generate(opt: argparse.Namespace) -> None:
     if opt.batch_seeds and opt.use_rgbd_integration:
         raise SystemExit("--batch_seeds currently supports splat conditioning")
     if opt.config:

@@ -112,6 +112,22 @@ def pose_matrix(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def make_intrinsics(fx: float, fy: float, cx: float, cy: float, device=None) -> torch.Tensor:
+    """[3, 3] f32 pinhole intrinsics."""
+    return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
+
+
+def relative_transform(t_tgt: torch.Tensor, t_src: torch.Tensor) -> torch.Tensor:
+    """T_rel = T_tgt @ inv(T_src) (reference: inference_pipeline.py:562)."""
+    return t_tgt @ torch.linalg.inv(t_src)
+
+
+def opengl_to_opencv(c2w: torch.Tensor) -> torch.Tensor:
+    """Flip the Y and Z axes: c2w @ diag(1, -1, -1, 1) (reference:
+    inference_pipeline.py:180)."""
+    return c2w @ torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=c2w.dtype, device=c2w.device))
+
+
 def plane_z_depth(k, w2c, plane_n, plane_d, hw: tuple, lo: float, hi: float) -> torch.Tensor:
     """Analytic z-depth [H, W] of the world plane {x : n.x = d} seen from
     the pose w2c [4, 4] with intrinsics k [3, 3], clamped to [lo, hi]: the

@@ -51,6 +51,8 @@ CODECS = {
     ),
 }
 
+CLEVR_CODEC, GOOGLE_EARTH_CODEC, KITTI360_CODEC = CODECS["clevr-infinite"], CODECS["google_earth"], CODECS["kitti360"]
+
 
 def get_codec(dataset: str) -> DepthCodec:
     if dataset not in CODECS:

@@ -53,6 +53,15 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the mesh library builds (or is built) and loads here."""
+    try:
+        _load()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
 def _fp(a: np.ndarray):
     return a.ctypes.data_as(_F32P)
 

@@ -212,6 +212,11 @@ class TSDFVolume:
     claim: torch.Tensor  # [S*claim_size] int32 generation-keyed claim entries
 
     @property
+    def pool_count(self) -> torch.Tensor:
+        """Lifetime slots booked across every cell (and scene)."""
+        return self.cell_counts.sum()
+
+    @property
     def pool_ids(self) -> torch.Tensor:
         """[S*capacity] the pool's slots (JAX's pool_ids)."""
         return self.pool_slots[:-1]

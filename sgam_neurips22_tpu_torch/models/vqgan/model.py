@@ -119,6 +119,11 @@ class VQModel(nn.Module):
         """post_quant_conv -> decoder: [B, h, w, D] -> [B, H, W, out_ch]."""
         return _nhwc(self.decoder(self.post_quant_conv(_nchw(quant)), flash))
 
+    def decode_code(self, indices, flash=None):
+        """Codeword indices [B, h, w] -> image [B, H, W, out_ch] (reference
+        model.py:136-139)."""
+        return self.decode(self.codebook[indices], flash)
+
     def decode_features(self, quant):
         """Decoder features before its conv_out: [B, h, w, D] -> [B, H, W, ch]
         (an NHWC view of the NCHW features)."""
@@ -148,3 +153,9 @@ class VQModel(nn.Module):
         xrec = self.decode(s.z_q.reshape(b * n, *s.z_q.shape[2:]), flash)
         xrec = xrec.reshape(b, n, *xrec.shape[1:])
         return ForwardResult(xrec, torch.zeros((), device=x.device), s.indices, pre_quant, s.z_q)
+
+
+def decode_code(model: VQModel, indices: torch.Tensor) -> torch.Tensor:
+    """Indices -> image, JAX's `decode_code(params, cfg, indices)` over a
+    VQModel (reference model.py:136-139)."""
+    return model.decode_code(indices)

@@ -7,6 +7,7 @@ from typing import NamedTuple
 
 import torch
 
+from sgam_neurips22_tpu_torch.core.device import f32_matmul
 from sgam_neurips22_tpu_torch.ops.vq import nearest_codeword
 
 
@@ -22,10 +23,14 @@ class TopKSampleResult(NamedTuple):
 
 
 def codeword_distances(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Squared L2 distances [P, K] = |z|^2 + |e|^2 - 2 z.e in f32."""
+    """Squared L2 distances [P, K] = |z|^2 + |e|^2 - 2 z.e in f32, the
+    product in full f32 in every matmul precision mode, as JAX pins it
+    (`precision=HIGHEST`): TF32 would perturb the ranking."""
     z = z_flat.float()
     e = codebook.float()
-    return (z * z).sum(dim=1, keepdim=True) + (e * e).sum(dim=1)[None, :] - 2.0 * (z @ e.T)
+    with f32_matmul():
+        ze = z @ e.T
+    return (z * z).sum(dim=1, keepdim=True) + (e * e).sum(dim=1)[None, :] - 2.0 * ze
 
 
 def nearest_codeword_indices(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -134,3 +139,46 @@ def quantize_topk(
         sampled = torch.where(free, sampled, top_idx[:, :1])
     sampled = sampled.reshape(b, h, w, sample_number).permute(0, 3, 1, 2)  # [B, S, h, w]
     return TopKSampleResult(codebook[sampled].to(z.dtype), sampled.to(torch.int32))
+
+
+def remap_to_used(indices: torch.Tensor, used: torch.Tensor, generator: torch.Generator | None = None,
+                  unknown_index: int | str = "random") -> torch.Tensor:
+    """Full-codebook indices mapped onto the reduced table `used`
+    (reference quantize.py:251-263): an index's position in `used`, and for
+    an index not in it a random position drawn from `generator` (JAX takes
+    a key) or the fixed `unknown_index`."""
+    match = indices[..., None] == used  # [..., n_used]
+    new = match.int().argmax(-1)  # first match, as jnp.argmax
+    unknown = ~match.any(-1)
+    if unknown_index == "random":
+        if generator is None:
+            raise ValueError("unknown_index='random' needs a torch.Generator")
+        fill = torch.randint(0, used.shape[0], indices.shape, generator=generator,
+                             device=generator.device).to(indices.device)
+    else:
+        fill = torch.full_like(new, int(unknown_index))
+    return torch.where(unknown, fill, new)
+
+
+def unmap_to_all(indices: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
+    """The inverse of remap_to_used (reference quantize.py:265-273); an
+    index past the used table reads entry 0."""
+    return used[torch.where(indices >= used.shape[0], 0, indices)]
+
+
+def embed_code(codebook: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Codewords of `indices` [...] -> [..., D] (reference quantize.py:327-342)."""
+    return codebook[indices]
+
+
+def update_codebook(codebook: torch.Tensor, features: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """A copy of `codebook` with rows `indices` replaced by `features`
+    (the online k-means refresh, reference quantize.py:321-325)."""
+    out = codebook.clone()
+    out[indices] = features.to(codebook.dtype)
+    return out
+
+
+def codebook_usage(indices: torch.Tensor, n_embed: int) -> torch.Tensor:
+    """[n_embed] int32 count of each codeword's uses among `indices`."""
+    return torch.bincount(indices.reshape(-1).long(), minlength=n_embed).to(torch.int32)

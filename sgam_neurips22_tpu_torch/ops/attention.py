@@ -31,6 +31,10 @@ CPU implementation is the plain version.
 
 Nothing else selects a plain version: a CUDA tensor launches a kernel or
 raises.
+
+The three kernels keep their 3xTF32 arithmetic (f32-accurate) in every
+matmul precision mode (`core.device.set_matmul_precision`): a 1xTF32 route
+under `default` would be another kernel, to be measured on its own.
 """
 from __future__ import annotations
 

@@ -8,6 +8,11 @@ version. It replaces the TPU kernel
 `sgam_neurips22_tpu/ops/vq_pallas.py::nearest_codeword` (see the .cu for its
 design and bound). Both versions rank codewords by ||e||^2 - 2 z.e, as the
 TPU kernel does, and add ||z||^2 to the winning distance only.
+
+The kernel's 3xTF32 product is f32-accurate in every matmul precision mode
+(`core.device.set_matmul_precision`): JAX pins this search at
+`Precision.HIGHEST` (its `codeword_distances`, and the Pallas kernel's
+6-pass bf16 product), so TF32 mode does not reach it.
 """
 from __future__ import annotations
 

@@ -2,11 +2,11 @@
 OpenCV, no Pillow): what `convert_exr` needs of Blender's renders.
 
 It reads scanline single-part files (the layout Blender writes, its
-multilayer files included) with NONE, RLE, ZIPS or ZIP compression, HALF,
-FLOAT and UINT channels, in increasing or decreasing line order. Every other
-layout raises a ValueError that names the file and what it lacks: PIZ,
-PXR24, B44, B44A, DWAA and DWAB compression, tiled, deep and multipart
-files, and subsampled channels.
+multilayer files included) with NONE, RLE, ZIPS, ZIP, PIZ or PXR24
+compression, HALF, FLOAT and UINT channels, in increasing or decreasing
+line order. Every other layout raises a ValueError that names the file and
+what it lacks: B44, B44A, DWAA and DWAB compression, tiled, deep and
+multipart files, and subsampled channels.
 
 The layout (OpenEXR's file-format document): a magic number and a version
 word whose flag bits mark tiled, deep and multipart files; a header of
@@ -17,22 +17,39 @@ scanline holds each channel's row in turn, the channels in the header's
 (alphabetical) order, little-endian. RLE and ZIP(S) data, once inflated,
 are split bytes (the even bytes, then the odd) with a delta predictor on
 top; a chunk whose compressed size is the raw size is stored raw.
+
+PIZ (32 lines a chunk; OpenEXR's ImfPizCompressor, ImfHuf, ImfWav) codes
+the chunk's 16-bit words, channel after channel, through a table of the
+values present, a 2D Haar wavelet and a Huffman code: the C++ decoder
+`csrc/exr_piz.cpp` (g++ at first use, `core.native`) reads files, and
+`piz_words_numpy` is the same decoder in numpy, its plain version.
+`csrc/exr_piz.cpp` describes the stream. PXR24 (16 lines a chunk) deflates
+byte planes of each row's differences: HALF and UINT exactly, FLOAT
+rounded to 24 bits by the writer, which the reader returns as written.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 import zlib
-from typing import Dict, List, NamedTuple, Tuple
+from pathlib import Path
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 MAGIC = 20000630
 COMPRESSIONS = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A", "DWAA", "DWAB")
-SUPPORTED = ("NONE", "RLE", "ZIPS", "ZIP")
-LINES = {"NONE": 1, "RLE": 1, "ZIPS": 1, "ZIP": 16}
+SUPPORTED = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24")
+LINES = {"NONE": 1, "RLE": 1, "ZIPS": 1, "ZIP": 16, "PIZ": 32, "PXR24": 16}
 PIXEL_TYPES = {0: np.dtype("<u4"), 1: np.dtype("<f2"), 2: np.dtype("<f4")}  # UINT, HALF, FLOAT
 LINE_ORDERS = ("INCREASING_Y", "DECREASING_Y", "RANDOM_Y")
 TILED, DEEP, MULTIPART = 0x200, 0x800, 0x1000  # version flags
+_PIZ_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "exr_piz.cpp"
+_PIZ_ERRORS = {-1: "is truncated", -2: "has a bitmap past 8192 bytes", -3: "has an invalid Huffman table",
+               -4: "has an invalid Huffman code", -5: "decodes to another number of words"}
+_lock = threading.Lock()
+_piz_cdll: Optional[ctypes.CDLL] = None
 
 
 class Channel(NamedTuple):
@@ -144,9 +161,217 @@ def _unpredict(raw: bytes) -> bytes:
     return out.tobytes()
 
 
-def _decompress(data: bytes, compression: str, size: int, path: str) -> bytes:
+def _huf_decode(data: bytes, n_out: int, path: str) -> np.ndarray:
+    """OpenEXR's Huffman stream (see csrc/exr_piz.cpp) -> n_out uint16 words."""
+    if not data:
+        if n_out:
+            raise ValueError(f"{path}: a PIZ chunk decodes to 0 words, not {n_out}")
+        return np.zeros(0, np.uint16)
+    if len(data) < 20:
+        raise ValueError(f"{path}: a PIZ chunk is truncated")
+    im, top, _, n_bits, _ = struct.unpack_from("<5I", data)
+    if im > top or top > 1 << 16:
+        raise ValueError(f"{path}: a PIZ chunk has an invalid Huffman table")
+    bits = np.unpackbits(np.frombuffer(data, np.uint8, offset=20))
+    lengths = np.zeros(top + 1, np.int64)
+    pos, s = 0, im
+
+    def field(n):
+        nonlocal pos
+        if pos + n > len(bits):
+            raise ValueError(f"{path}: a PIZ chunk is truncated")
+        v = int(bits[pos:pos + n] @ (1 << np.arange(n - 1, -1, -1)))
+        pos += n
+        return v
+
+    while s <= top:
+        n = field(6)
+        if n >= 59:  # a run of zero lengths: 2-5, or 6-261 in the next 8 bits
+            run = field(8) + 6 if n == 63 else n - 57
+            if s + run > top + 1:
+                raise ValueError(f"{path}: a PIZ chunk has an invalid Huffman table")
+            s += run
+        else:
+            lengths[s] = n
+            s += 1
+    start = (pos + 7) // 8 * 8  # the codes start at the next byte
+    if start + n_bits > len(bits):
+        raise ValueError(f"{path}: a PIZ chunk is truncated")
+    # canonical codes: the lowest code of each length, longer codes lower
+    count = np.bincount(lengths, minlength=60)
+    first, c = [0] * 60, 0
+    for n in range(58, 0, -1):
+        first[n], c = c, (c + int(count[n])) >> 1
+    order = np.lexsort((np.arange(top + 1), lengths))  # by length, then symbol
+    order = order[lengths[order] > 0]
+    codes = {}  # (length, code) -> symbol
+    nxt = list(first)
+    for sym in order.tolist():
+        n = int(lengths[sym])
+        codes[n, nxt[n]] = sym
+        nxt[n] += 1
+    out: List[int] = []
+    stream = bits[start:start + n_bits].tolist()
+    i, end = 0, len(stream)
+    while i < end:
+        v = n = 0
+        while True:
+            if i >= end or n == 58:
+                raise ValueError(f"{path}: a PIZ chunk has an invalid Huffman code")
+            v = (v << 1) | stream[i]
+            i += 1
+            n += 1
+            sym = codes.get((n, v))
+            if sym is not None:
+                break
+        if sym == top:  # the run symbol: the last word again, 8 bits' worth of times
+            if i + 8 > end or not out:
+                raise ValueError(f"{path}: a PIZ chunk has an invalid Huffman code")
+            run = 0
+            for b in stream[i:i + 8]:
+                run = (run << 1) | b
+            i += 8
+            out.extend([out[-1]] * run)
+        else:
+            out.append(sym)
+    if len(out) != n_out:
+        raise ValueError(f"{path}: a PIZ chunk decodes to {len(out)} words, not {n_out}")
+    return np.array(out, np.uint16)
+
+
+def _wdec14(lo: np.ndarray, hi: np.ndarray):
+    ls, hs = lo.view(np.int16).astype(np.int32), hi.view(np.int16).astype(np.int32)
+    a = ls + (hs & 1) + (hs >> 1)
+    return (a & 0xFFFF).astype(np.uint16), ((a - hs) & 0xFFFF).astype(np.uint16)
+
+
+def _wdec16(lo: np.ndarray, hi: np.ndarray):
+    m, d = lo.astype(np.int32), hi.astype(np.int32)
+    b = (m - (d >> 1)) & 0xFFFF
+    return ((d + b - 0x8000) & 0xFFFF).astype(np.uint16), b.astype(np.uint16)
+
+
+def _wav2_decode(a: np.ndarray, max_value: int) -> None:
+    """The inverse 2D wavelet of the [ny, nx] uint16 view `a`, in place:
+    level by level from the coarsest, every 2x2 block of a level at once."""
+    dec = _wdec14 if max_value < 1 << 14 else _wdec16
+    ny, nx = a.shape
+    p = 1
+    while p <= min(nx, ny):
+        p <<= 1
+    p2, p = p >> 1, p >> 2
+    while p >= 1:
+        ye, xe = ny // p2 * p2, nx // p2 * p2  # past the last block
+        px, p01 = a[0:ye:p2, 0:xe:p2], a[0:ye:p2, p:xe:p2]
+        p10, p11 = a[p:ye:p2, 0:xe:p2], a[p:ye:p2, p:xe:p2]
+        i00, i10 = dec(px, p10)
+        i01, i11 = dec(p01, p11)
+        px[...], p01[...] = dec(i00, i01)
+        p10[...], p11[...] = dec(i10, i11)
+        if nx & p:  # the odd column
+            a[0:ye:p2, xe], a[p:ye:p2, xe] = dec(a[0:ye:p2, xe], a[p:ye:p2, xe])
+        if ny & p:  # the odd row
+            a[ye, 0:xe:p2], a[ye, p:xe:p2] = dec(a[ye, 0:xe:p2], a[ye, p:xe:p2])
+        p2, p = p, p >> 1
+
+
+def piz_words_numpy(data: bytes, nx: int, ny: int, sizes: Sequence[int], path: str = "<PIZ>") -> np.ndarray:
+    """The 16-bit words of a PIZ chunk of ny rows of nx pixels, channel
+    after channel, each channel sizes[c] words a pixel (1: HALF, 2: FLOAT or
+    UINT, low word first) and its rows in turn: the plain version of
+    `csrc/exr_piz.cpp`."""
+    buf = _Bytes(data, path)
+    lo, hi = struct.unpack("<HH", buf.take(4))
+    if hi >= 8192:
+        raise ValueError(f"{path}: a PIZ chunk has a bitmap past 8192 bytes")
+    bitmap = np.zeros(8192, np.uint8)
+    if lo <= hi:
+        bitmap[lo:hi + 1] = np.frombuffer(buf.take(hi - lo + 1), np.uint8)
+    present = np.unpackbits(bitmap, bitorder="little").astype(bool)
+    present[0] = True
+    lut = np.zeros(1 << 16, np.uint16)  # rank -> value
+    values = np.flatnonzero(present)
+    lut[:len(values)] = values
+    (length,) = struct.unpack("<i", buf.take(4))
+    if length < 0 or buf.pos + length > len(data):
+        raise ValueError(f"{path}: a PIZ chunk is truncated")
+    words = _huf_decode(buf.take(length), nx * ny * sum(sizes), path)
+    at = 0
+    for size in sizes:
+        plane = words[at:at + nx * ny * size].reshape(ny, nx * size)
+        for j in range(size):
+            _wav2_decode(plane[:, j::size], len(values) - 1)
+        at += nx * ny * size
+    return lut[words]
+
+
+def _piz_lib() -> ctypes.CDLL:
+    global _piz_cdll
+    with _lock:
+        if _piz_cdll is None:
+            from sgam_neurips22_tpu_torch.core import native
+
+            lib = ctypes.CDLL(str(native.build(_PIZ_SOURCE, "libsgam_exr_piz")))
+            lib.piz_decode.restype = ctypes.c_int64
+            lib.piz_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                                       ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64]
+            _piz_cdll = lib
+        return _piz_cdll
+
+
+def piz_words(data: bytes, nx: int, ny: int, sizes: Sequence[int], path: str = "<PIZ>") -> np.ndarray:
+    """`piz_words_numpy`'s words, decoded by `csrc/exr_piz.cpp`."""
+    sz = np.asarray(sizes, np.int32)
+    out = np.empty(nx * ny * int(sz.sum()), np.uint16)
+    status = _piz_lib().piz_decode(data, len(data), nx, ny, sz.ctypes.data, len(sz), out.ctypes.data, out.size)
+    if status:
+        raise ValueError(f"{path}: a PIZ chunk {_PIZ_ERRORS.get(status, f'fails ({status})')}")
+    return out
+
+
+def _piz(data: bytes, channels: List[Channel], w: int, n: int, path: str, native: bool) -> bytes:
+    sizes = [ch.dtype.itemsize // 2 for ch in channels]
+    words = (piz_words if native else piz_words_numpy)(data, w, n, sizes, path).astype("<u2")
+    at, rows = 0, []
+    for size in sizes:  # each channel's rows back into scanlines
+        rows.append(words[at:at + n * w * size].view(np.uint8).reshape(n, -1))
+        at += n * w * size
+    return np.concatenate(rows, axis=1).tobytes()
+
+
+_PXR24_PLANES = {"<u4": 4, "<f2": 2, "<f4": 3}  # byte planes a sample: UINT, HALF, FLOAT (24 bits)
+
+
+def _pxr24(data: bytes, channels: List[Channel], w: int, n: int, path: str) -> bytes:
+    """Each row of each channel: byte planes (most significant first) of
+    the differences of its samples' bits, summed back here mod 2^32 (a
+    FLOAT's 24 bits are its top three bytes)."""
+    planes = [_PXR24_PLANES[ch.dtype.str] for ch in channels]
+    raw = np.frombuffer(zlib.decompress(data), np.uint8)
+    if raw.size != n * w * sum(planes):
+        raise ValueError(f"{path}: a PXR24 chunk inflates to {raw.size} bytes, not {n * w * sum(planes)}")
+    raw, at, rows = raw.reshape(n, -1), 0, []
+    for ch, k in zip(channels, planes):
+        b = raw[:, at:at + k * w].reshape(n, k, w).astype(np.uint32)
+        at += k * w
+        diff = np.zeros((n, w), np.uint32)
+        for i in range(k):
+            diff |= b[:, i] << np.uint32(8 * (3 - i) if k == 3 else 8 * (k - 1 - i))
+        bits = np.cumsum(diff, axis=1, dtype=np.uint32)
+        rows.append(bits.astype(ch.dtype.str.replace("f", "u")).view(np.uint8).reshape(n, -1))
+    return np.concatenate(rows, axis=1).tobytes()
+
+
+def _decompress(data: bytes, hdr: Header, w: int, n: int, path: str, native: bool = True) -> bytes:
+    """The raw scanline bytes of a chunk of n rows of w pixels."""
+    size = n * w * sum(ch.dtype.itemsize for ch in hdr.channels)
+    compression = hdr.compression
     if compression == "NONE" or len(data) == size:
         return data
+    if compression == "PIZ":
+        return _piz(data, hdr.channels, w, n, path, native)
+    if compression == "PXR24":
+        return _pxr24(data, hdr.channels, w, n, path)
     if compression == "RLE":
         return _unpredict(_rle_decode(data, size, path))
     raw = zlib.decompress(data)
@@ -155,9 +380,10 @@ def _decompress(data: bytes, compression: str, size: int, path: str) -> bytes:
     return _unpredict(raw)
 
 
-def read_exr(path: str) -> Tuple[Header, Dict[str, np.ndarray]]:
+def read_exr(path: str, native: bool = True) -> Tuple[Header, Dict[str, np.ndarray]]:
     """(header, {channel name: [H, W] array in its pixel type: float16,
-    float32 or uint32}) of a scanline single-part OpenEXR file."""
+    float32 or uint32}) of a scanline single-part OpenEXR file; PIZ chunks
+    through `csrc/exr_piz.cpp`, or `piz_words_numpy` without `native`."""
     with open(path, "rb") as f:
         buf = _Bytes(f.read(), path)
     hdr = read_header(buf)
@@ -167,7 +393,6 @@ def read_exr(path: str) -> Tuple[Header, Dict[str, np.ndarray]]:
     n_chunks = (h + lines - 1) // lines
     offsets = struct.unpack(f"<{n_chunks}Q", buf.take(8 * n_chunks))
     row_bytes = [w * ch.dtype.itemsize for ch in hdr.channels]
-    line_bytes = sum(row_bytes)
     planes = {ch.name: np.empty((h, w), ch.dtype) for ch in hdr.channels}
     seen = np.zeros(n_chunks, bool)
     for off in offsets:
@@ -178,7 +403,7 @@ def read_exr(path: str) -> Tuple[Header, Dict[str, np.ndarray]]:
         if first < 0 or first >= h or first % lines:
             raise ValueError(f"{path}: a chunk starts at scanline {y}, outside the data window {hdr.data_window}")
         n = min(lines, h - first)
-        raw = _decompress(chunk.take(size), hdr.compression, n * line_bytes, path)
+        raw = _decompress(chunk.take(size), hdr, w, n, path, native)
         pos = 0
         for r in range(n):
             for ch, nb in zip(hdr.channels, row_bytes):

@@ -19,6 +19,15 @@ def source_radius(dataset: str) -> float:
     return RADIUS.get(dataset, DEFAULT_RADIUS)
 
 
+def get_closest_anchor(grid: PoseGrid, anchor_indices: Sequence[int], tgt_idx: int) -> int:
+    """The index of the anchor (seed) pose nearest the target (reference
+    `get_closest_anchor`, inference_pipeline.py:423-431; off the main path
+    there too)."""
+    pos = grid.position[list(anchor_indices)]
+    d = np.linalg.norm(pos - grid.position[tgt_idx], axis=1)
+    return int(anchor_indices[int(np.argmin(d))])
+
+
 def select_sources(
     grid: PoseGrid,
     visit_order: Sequence[Tuple[int, int]],

@@ -16,8 +16,14 @@ CPU, on tests/test_export_aot.py's TINY config (32^2 images):
   inference tensor;
 - a subprocess in which `jax`, the JAX package and the port's `models`,
   `pipeline`, `serving` and `training` cannot be imported loads the
-  artifact with JAX's weights and gives the same outputs.
+  artifact with JAX's weights and gives the same outputs;
+- platforms (JAX's `--platforms`): the f32 topk-1 artifact is exported for
+  cpu and cuda and loaded with device="cpu" (so the eager-step test holds
+  it), its record reads back, a move to another device leaves nothing on
+  the CPU, and a CPU-only artifact asked for cuda is refused, naming its
+  platforms.
 """
+import copy
 import os
 import subprocess
 import sys
@@ -28,10 +34,17 @@ import numpy as np
 import pytest
 import torch
 from jax import export as jexport
+from torch.export.passes import move_to_device_pass
 
 from sgam_neurips22_tpu.serving import build_inference_step as j_build_inference_step
 from sgam_neurips22_tpu_torch.core.state_dict import from_jax_params
-from sgam_neurips22_tpu_torch.export_aot import INPUTS, export_step, gumbel_shape, load_step
+from sgam_neurips22_tpu_torch.export_aot import (
+    INPUTS,
+    artifact_platforms,
+    export_step,
+    gumbel_shape,
+    load_step,
+)
 from sgam_neurips22_tpu_torch.serving import build_inference_step
 from test_export_aot import TINY
 from torch_port_common import port_config, port_model, to_numpy_tree
@@ -111,9 +124,10 @@ def artifacts(tmp_path_factory, jax_side):
         _, (_, batch, _) = build_inference_step(cfg, image_size=SIZE, device="cpu")
         for topk in (1, 4):
             path = str(root / f"step_{dtype}_{topk}.pt2")
-            exported = export_step(cfg, path, device="cpu", topk=topk)
+            platforms = ["cpu", "cuda"] if (dtype, topk) == ("float32", 1) else None  # one two-platform artifact
+            exported = export_step(cfg, path, device="cpu", topk=topk, platforms=platforms)
             inputs = [batch[name] for name in INPUTS] + ([_noise(key, topk)] if topk > 1 else [])
-            step = load_step(path, state_dict=sd)
+            step = load_step(path, state_dict=sd, device="cpu" if platforms else None)
             out[dtype, topk] = (path, exported, cfg, inputs, step(*inputs))
     return out
 
@@ -165,3 +179,20 @@ def test_loads_without_the_model_code(tmp_path, jax_side, artifacts):
     side = torch.load(tmp_path / "load_side.pt")
     assert side["imported"] == []
     assert all(torch.equal(a, b) for a, b in zip(side["outputs"], want))
+
+
+def test_platforms_are_recorded_and_a_device_outside_them_is_refused(artifacts):
+    """The f32 topk-1 artifact was exported for cpu and cuda (and loaded
+    with device="cpu" by the fixture: test_loaded_program_equals_eager_step
+    holds it to the eager step), the others for the CPU alone, the device
+    they were traced on. Moved to another device (`meta`, as this build has
+    no card), no tensor or device of the program stays on the CPU. A
+    CPU-only artifact asked for the card is refused by its record, before
+    the program is loaded or a card is looked for."""
+    assert artifact_platforms(artifacts["float32", 1][0]) == ["cpu", "cuda"]
+    assert artifact_platforms(artifacts["float32", 4][0]) == ["cpu"]
+    moved = move_to_device_pass(copy.deepcopy(artifacts["float32", 1][1]), "meta")
+    assert not any("cpu" in str(n.args) + str(n.kwargs) for n in moved.graph.nodes)
+    assert {t.device.type for t in [*moved.state_dict.values(), *moved.constants.values()]} == {"meta"}
+    with pytest.raises(ValueError, match=r"exported for platforms \['cpu'\], not 'cuda'"):
+        load_step(artifacts["float32", 4][0], device="cuda")

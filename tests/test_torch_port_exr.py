@@ -3,7 +3,9 @@ against the JAX tool (`tools/convert_exr.py`), on the CPU.
 
 EXR files are written here byte by byte from the OpenEXR file layout
 (`write_exr`: `struct` and `zlib`, independent of the port's reader): NONE,
-RLE, ZIPS and ZIP; HALF, FLOAT and UINT channels; both line orders; a data
+RLE, ZIPS, ZIP, PIZ (the test's own bitmap, wavelet and Huffman encoder)
+and PXR24 (with its own 24-bit rounding, `float24`); HALF, FLOAT and UINT
+channels; both line orders; a data
 window off the origin; Blender's multilayer channel names in both
 view-layer namings; single-layer RGBA files and an RGB file with an
 Image -> Depth sibling. Each case runs the JAX tool's own `convert_one` on
@@ -11,10 +13,14 @@ the same arrays: its multilayer branch through stub `OpenEXR` / `Imath`
 modules that serve them (as OpenEXR reads a channel as FLOAT), its OpenCV
 branch (OpenEXR unimportable) through a stub `cv2.imread` that returns them
 as OpenCV does (BGR(A) float32; this cv2 has no EXR codec). The file names,
-the `.npy` bytes and the PNG pixels must be equal. PIZ and the other codecs,
+the `.npy` bytes and the PNG pixels must be equal. PIZ is read by both
+decoders, the C++ one and the numpy one, bit for bit, also where the
+wavelet runs modular (more than 2^14 distinct words in a chunk); four
+small files written by OpenEXR itself are kept as bytes. B44(A), DWAA/B,
 tiled, deep and multipart files, subsampled channels and a file without
 RGB raise errors that name what they lack.
 """
+import base64
 import importlib.util
 import os
 import struct
@@ -33,9 +39,48 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 37, 29  # ZIP's 16-line chunks end with a chunk of 5 lines
 COMPRESSION_CODES = {"NONE": 0, "RLE": 1, "ZIPS": 2, "ZIP": 3, "PIZ": 4, "PXR24": 5, "B44": 6, "B44A": 7,
                      "DWAA": 8, "DWAB": 9}
-CHUNK_LINES = {"NONE": 1, "RLE": 1, "ZIPS": 1, "ZIP": 16}
+CHUNK_LINES = {"NONE": 1, "RLE": 1, "ZIPS": 1, "ZIP": 16, "PIZ": 32, "PXR24": 16}
 PIXEL_CODE = {np.dtype(np.uint32): 0, np.dtype(np.float16): 1, np.dtype(np.float32): 2}
 ARRAYS = {}  # path -> {channel: array}: what the stubs serve
+# single-channel ("Y") 4 x 33 files written by OpenEXR (cv2.imwrite, OpenCV 4.13) from `_openexr_arrays`:
+# the PIZ files' first chunk and the PXR24 files' first two are stored compressed
+OPENEXR_STREAMS = {
+    "PIZ_HALF": (
+        "di8xAQIAAABjaGFubmVscwBjaGxpc3QAEwAAAFkAAQAAAAAAAAABAAAAAQAAAABjb21wcmVzc2lvbgBjb21wcmVzc2lvbgABAAAA"
+        "BGRhdGFXaW5kb3cAYm94MmkAEAAAAAAAAAAAAAAAAwAAACAAAABkaXNwbGF5V2luZG93AGJveDJpABAAAAAAAAAAAAAAAAMAAAAg"
+        "AAAAbGluZU9yZGVyAGxpbmVPcmRlcgABAAAAAHBpeGVsQXNwZWN0UmF0aW8AZmxvYXQABAAAAAAAgD9zY3JlZW5XaW5kb3dDZW50"
+        "ZXIAdjJmAAgAAAAAAAAAAAAAAHNjcmVlbldpbmRvd1dpZHRoAGZsb2F0AAQAAAAAAIA/ACUBAAAAAAAAmgEAAAAAAAAAAAAAbQAA"
+        "AIkHmQf+////////////////////AVQAAAAAAAAAeQAAABgAAAA8AQAAAAAAAAghAAvA/wkf8JH/CR/wkf8JH/CR/wkccA0Numbd"
+        "Cw26Zt0JDbpm3QcNumbdBQ26Zt0DDbpm3QENumbdMNumbdAgAAAACAAAAEg8RzxGPEU8"
+    ),
+    "PIZ_FLOAT": (
+        "di8xAQIAAABjaGFubmVscwBjaGxpc3QAEwAAAFkAAgAAAAAAAAABAAAAAQAAAABjb21wcmVzc2lvbgBjb21wcmVzc2lvbgABAAAA"
+        "BGRhdGFXaW5kb3cAYm94MmkAEAAAAAAAAAAAAAAAAwAAACAAAABkaXNwbGF5V2luZG93AGJveDJpABAAAAAAAAAAAAAAAAMAAAAg"
+        "AAAAbGluZU9yZGVyAGxpbmVPcmRlcgABAAAAAHBpeGVsQXNwZWN0UmF0aW8AZmxvYXQABAAAAAAAgD9zY3JlZW5XaW5kb3dDZW50"
+        "ZXIAdjJmAAgAAAAAAAAAAAAAAHNjcmVlbldpbmRvd1dpZHRoAGZsb2F0AAQAAAAAAIA/ACUBAAAAAAAAuAEAAAAAAAAAAAAAiwAA"
+        "APAHCQgBAAAAAAAAAAD+////////////////////AWkAAAAAAAAAegAAABkAAADZAQAAAAAAAAQhQA/BR/wkj8JH/CR/wkf8JH/C"
+        "R/wkcgAOsVnnjvZ54ZYrPPHezzwqxWeeO9nnhFis88d7PPBrFZ5472eeCWKzzx3s88AWKzzx3s88CsVnnjvZ54AgAAAAEAAAAMg/"
+        "gD/HP4A/xj+AP8U/gD8="
+    ),
+    "PXR24_HALF": (
+        "di8xAQIAAABjaGFubmVscwBjaGxpc3QAEwAAAFkAAQAAAAAAAAABAAAAAQAAAABjb21wcmVzc2lvbgBjb21wcmVzc2lvbgABAAAA"
+        "BWRhdGFXaW5kb3cAYm94MmkAEAAAAAAAAAAAAAAAAwAAACAAAABkaXNwbGF5V2luZG93AGJveDJpABAAAAAAAAAAAAAAAAMAAAAg"
+        "AAAAbGluZU9yZGVyAGxpbmVPcmRlcgABAAAAAHBpeGVsQXNwZWN0UmF0aW8AZmxvYXQABAAAAAAAgD9zY3JlZW5XaW5kb3dDZW50"
+        "ZXIAdjJmAAgAAAAAAAAAAAAAAHNjcmVlbldpbmRvd1dpZHRoAGZsb2F0AAQAAAAAAIA/AC0BAAAAAAAAeQEAAAAAAADMAQAAAAAA"
+        "AAAAAABEAAAAeJyFzNERgDAIA1Baz7qRZ+3+Q6k0UcIA5ucdgaPTFvtyYL1StHDQ1Y+nyr90o+52tFtz8Zoy9/QtPGFFfzERvkaI"
+        "FaYQAAAASwAAAHicLcxRDoAwCAPQCpteaDGy3f9QBocKg5+XtKQyecN//dXdPcmq2w4l93oiRjc2VwB1hwUY9+pFS/y3gtybmaOm"
+        "WHvEuR9+JFAWhSAAAAAIAAAAADsANAA6ADk="
+    ),
+    "PXR24_FLOAT": (
+        "di8xAQIAAABjaGFubmVscwBjaGxpc3QAEwAAAFkAAgAAAAAAAAABAAAAAQAAAABjb21wcmVzc2lvbgBjb21wcmVzc2lvbgABAAAA"
+        "BWRhdGFXaW5kb3cAYm94MmkAEAAAAAAAAAAAAAAAAwAAACAAAABkaXNwbGF5V2luZG93AGJveDJpABAAAAAAAAAAAAAAAAMAAAAg"
+        "AAAAbGluZU9yZGVyAGxpbmVPcmRlcgABAAAAAHBpeGVsQXNwZWN0UmF0aW8AZmxvYXQABAAAAAAAgD9zY3JlZW5XaW5kb3dDZW50"
+        "ZXIAdjJmAAgAAAAAAAAAAAAAAHNjcmVlbldpbmRvd1dpZHRoAGZsb2F0AAQAAAAAAIA/AC0BAAAAAAAAiAEAAAAAAADrAQAAAAAA"
+        "AAAAAABTAAAAeJyVjlsNwFAIQysFJQMpSEHKlVIpOGGEhWW/69cJj7ZagCQcLS0UeOThXpBc9oy9gbsN/5W2vSDn9+qstrd3LvHh"
+        "xOZKRm6uEdutnGe63WVtKoEQAAAAWwAAAHicTY7BDQAhCAS3FCo5KWVLoRRKoRQ74VCjwQeZkMngSECcgnojEzoZiz8kQsMv26Qe"
+        "p4ZtZXFqHH8AWRHeDoPXAeX5EJqeZmUM7a43B9747WHK9p/NP/K7LlogAAAAEAAAAAAAYD8AAIA+AABAPwAAID8="
+    ),
+}
 
 
 # ------------------------------------------------------------ the test's writer
@@ -68,12 +113,211 @@ def _rle(data: bytes) -> bytes:
     return bytes(out)
 
 
-def _compress(raw: bytes, compression: str) -> bytes:
+def _compress(raw: bytes, compression: str, block=None) -> bytes:
+    """A chunk's data: `raw`, its scanline bytes, or for PIZ and PXR24
+    `block`, each channel's rows of the chunk ([n, W] little-endian)."""
     if compression == "NONE":
         return raw
-    packed = _split_predict(raw)
-    data = _rle(packed) if compression == "RLE" else zlib.compress(packed)
+    if compression == "PIZ":
+        data = _piz(block)
+    elif compression == "PXR24":
+        data = _pxr24(block)
+    else:
+        packed = _split_predict(raw)
+        data = _rle(packed) if compression == "RLE" else zlib.compress(packed)
     return data if len(data) < len(raw) else raw  # stored raw where it does not shrink, as OpenEXR does
+
+
+def float24(a: np.ndarray) -> np.ndarray:
+    """OpenEXR's PXR24 rounding of float32 to 24 bits (ImfPxr24Compressor's
+    floatToFloat24), as the float32 the reader returns: the significand
+    rounded to 15 bits, half away from zero in magnitude; truncated where
+    rounding would overflow to infinity; NaNs keep a set bit."""
+    u = a.astype(np.float32).view(np.uint32).astype(np.int64)
+    s, e, m = u & 0x80000000, u & 0x7F800000, u & 0x007FFFFF
+    rounded = ((e | m) + (m & 0x80)) >> 8
+    finite = np.where(rounded >= 0x7F8000, (e | m) >> 8, rounded)
+    special = np.where(m != 0, (e >> 8) | (m >> 8) | ((m >> 8) == 0), e >> 8)
+    i = np.where(e == 0x7F800000, special, finite)
+    return (((s >> 8) | i) << 8).astype(np.uint32).view(np.float32)
+
+
+def _pxr24(block) -> bytes:
+    """PXR24: each row of each channel as byte planes (most significant
+    first) of its samples' differences, UINT 4 planes, HALF 2, FLOAT 3 of
+    its 24-bit rounding; deflated."""
+    out = bytearray()
+    for r in range(block[0].shape[0]):
+        for b in block:
+            if b.dtype == np.float32:
+                bits, planes = float24(b[r]).view(np.uint32).astype(np.int64) >> 8, (16, 8, 0)
+            elif b.dtype == np.float16:
+                bits, planes = b[r].view(np.uint16).astype(np.int64), (8, 0)
+            else:
+                bits, planes = b[r].astype(np.int64), (24, 16, 8, 0)
+            diff = np.diff(bits, prepend=0) % (1 << 32)
+            for shift in planes:
+                out += ((diff >> shift) & 0xFF).astype(np.uint8).tobytes()
+    return zlib.compress(bytes(out))
+
+
+class _BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def put(self, value: int, n: int):
+        self.bits.extend((value >> (n - 1 - i)) & 1 for i in range(n))
+
+    def tobytes(self) -> bytes:
+        pad = self.bits + [0] * (-len(self.bits) % 8)
+        return np.packbits(np.array(pad, np.uint8)).tobytes() if pad else b""
+
+
+def _huffman_lengths(freq: dict) -> dict:
+    """Code lengths of a Huffman code for {symbol: count}."""
+    import heapq
+
+    heap = [(f, i, [s]) for i, (s, f) in enumerate(sorted(freq.items()))]
+    heapq.heapify(heap)
+    depth = dict.fromkeys(freq, 0)
+    tie = len(heap)
+    while len(heap) > 1:
+        f1, _, a = heapq.heappop(heap)
+        f2, _, b = heapq.heappop(heap)
+        for sym in a + b:
+            depth[sym] += 1
+        heapq.heappush(heap, (f1 + f2, tie, a + b))
+        tie += 1
+    return depth
+
+
+def _canonical(lengths: dict) -> dict:
+    """OpenEXR's canonical codes from code lengths: the lowest code of each
+    length, longer lengths first, symbols of a length in order."""
+    count = [0] * 59
+    for n in lengths.values():
+        count[n] += 1
+    start, c = [0] * 59, 0
+    for n in range(58, 0, -1):
+        start[n], c = c, (c + count[n]) >> 1
+    codes = {}
+    for sym in sorted(lengths):
+        codes[sym] = (start[lengths[sym]], lengths[sym])
+        start[lengths[sym]] += 1
+    return codes
+
+
+def _huffman(words: np.ndarray) -> bytes:
+    """OpenEXR's Huffman stream of 16-bit words: a run symbol one past the
+    largest word, runs of a repeated word sent as (word, run, 8-bit count)
+    where that is shorter, the packed table of code lengths."""
+    values, counts = np.unique(words, return_counts=True)
+    im, run_sym = int(values[0]), int(values[-1]) + 1
+    lengths = _huffman_lengths({**dict(zip(values.tolist(), counts.tolist())), run_sym: 1})
+    codes = _canonical(lengths)
+    table = _BitWriter()
+    s = im
+    while s <= run_sym:
+        if s in lengths:
+            table.put(lengths[s], 6)
+            s += 1
+            continue
+        run = 1
+        while s + run <= run_sym and s + run not in lengths and run < 261:
+            run += 1
+        if run == 1:
+            table.put(0, 6)
+        elif run < 6:
+            table.put(59 + run - 2, 6)
+        else:
+            table.put(63, 6)
+            table.put(run - 6, 8)
+        s += run
+    data = _BitWriter()
+
+    def send(sym, repeats):  # sym once and `repeats` more times
+        code, n = codes[sym]
+        rc, rn = codes[run_sym]
+        if n + rn + 8 < n * repeats:
+            data.put(code, n)
+            data.put(rc, rn)
+            data.put(repeats, 8)
+        else:
+            for _ in range(repeats + 1):
+                data.put(code, n)
+
+    seq, cur, reps = words.tolist(), None, 0
+    for i, w in enumerate(seq):
+        if i and w == cur and reps < 255:
+            reps += 1
+            continue
+        if i:
+            send(cur, reps)
+        cur, reps = w, 0
+    send(cur, reps)
+    tab = table.tobytes()
+    return struct.pack("<5I", im, run_sym, len(tab), len(data.bits), 0) + tab + data.tobytes()
+
+
+def _wenc(a: np.ndarray, b: np.ndarray, w14: bool):
+    """OpenEXR's wavelet step: (mean, difference) of 16-bit words, plain
+    below 2^14, modular above."""
+    a32, b32 = a.astype(np.int64), b.astype(np.int64)
+    if w14:
+        sa, sb = a.view(np.int16).astype(np.int64), b.view(np.int16).astype(np.int64)
+        return ((sa + sb) >> 1) & 0xFFFF, (sa - sb) & 0xFFFF
+    ao = (a32 + 0x8000) & 0xFFFF
+    m, d = (ao + b32) >> 1, ao - b32
+    m = np.where(d < 0, (m + 0x8000) & 0xFFFF, m)
+    return m, d & 0xFFFF
+
+
+def _wav2_encode(a: np.ndarray, max_value: int) -> None:
+    """OpenEXR's 2D wavelet of the [ny, nx] uint16 view `a`, in place, from
+    the finest level up."""
+    w14 = max_value < 1 << 14
+    ny, nx = a.shape
+    p, p2 = 1, 2
+    while p2 <= min(nx, ny):
+        ye, xe = ny // p2 * p2, nx // p2 * p2
+        px, p01, p10, p11 = a[0:ye:p2, 0:xe:p2], a[0:ye:p2, p:xe:p2], a[p:ye:p2, 0:xe:p2], a[p:ye:p2, p:xe:p2]
+        i00, i01 = _wenc(px, p01, w14)
+        i10, i11 = _wenc(p10, p11, w14)
+        px[...], p10[...] = _wenc(i00.astype(np.uint16), i10.astype(np.uint16), w14)
+        p01[...], p11[...] = _wenc(i01.astype(np.uint16), i11.astype(np.uint16), w14)
+        if nx & p:
+            a[0:ye:p2, xe], a[p:ye:p2, xe] = _wenc(a[0:ye:p2, xe], a[p:ye:p2, xe], w14)
+        if ny & p:
+            a[ye, 0:xe:p2], a[ye, p:xe:p2] = _wenc(a[ye, 0:xe:p2], a[ye, p:xe:p2], w14)
+        p, p2 = p2, p2 << 1
+
+
+def _piz(block) -> bytes:
+    """PIZ: the chunk's 16-bit words (channel after channel, a 32-bit
+    sample's low word first) mapped to their ranks among the values
+    present (a bitmap of which is stored), each channel's word planes
+    wavelet-transformed, then Huffman-coded."""
+    planes = [np.ascontiguousarray(b).view("<u2").reshape(b.shape[0], -1) for b in block]
+    words = np.concatenate([p.reshape(-1) for p in planes])
+    present = np.zeros(1 << 16, bool)
+    present[words] = True
+    present[0] = False
+    bitmap = np.packbits(present, bitorder="little")
+    nz = np.flatnonzero(bitmap)
+    lo, hi = (int(nz[0]), int(nz[-1])) if len(nz) else (8191, 0)
+    present[0] = True
+    rank = np.cumsum(present).astype(np.int64) - 1
+    max_value = int(rank[-1])
+    out, at = rank[words].astype(np.uint16), 0
+    for b, p in zip(block, planes):
+        plane = out[at:at + p.size].reshape(p.shape)
+        size = b.dtype.itemsize // 2
+        for j in range(size):
+            _wav2_encode(plane[:, j::size], max_value)
+        at += p.size
+    huf = _huffman(out)
+    head = struct.pack("<HH", lo, hi) + (bitmap[lo:hi + 1].tobytes() if lo <= hi else b"")
+    return head + struct.pack("<i", len(huf)) + huf
 
 
 def _attr(name: str, kind: str, value: bytes) -> bytes:
@@ -102,11 +346,17 @@ def write_exr(path, channels: dict, compression: str = "ZIP", decreasing: bool =
     lines = CHUNK_LINES.get(compression, 32)
     starts = list(range(0, h, lines))
     chunks, compressed = {}, 0
+    held = {n: channels[n].copy() for n in names}  # what the file holds: PXR24 rounds FLOAT to 24 bits
     for s in starts:
-        raw = b"".join(np.ascontiguousarray(channels[n][r]).astype(channels[n].dtype.newbyteorder("<")).tobytes()
-                       for r in range(s, min(s + lines, h)) for n in names)
-        data = _compress(raw, compression)
+        block = [np.ascontiguousarray(channels[n][s:s + lines]).astype(channels[n].dtype.newbyteorder("<"))
+                 for n in names]
+        raw = b"".join(b[r].tobytes() for r in range(len(block[0])) for b in block)
+        data = _compress(raw, compression, block)
         compressed += len(data) < len(raw)
+        if compression == "PXR24" and len(data) < len(raw):
+            for n in names:
+                if held[n].dtype == np.float32:
+                    held[n][s:s + lines] = float24(held[n][s:s + lines])
         chunks[s] = struct.pack("<ii", y0 + s, len(data)) + data
     prefix = struct.pack("<ii", 20000630, 2 | version_flags) + header
     table_end = len(prefix) + 8 * len(starts)
@@ -117,7 +367,7 @@ def write_exr(path, channels: dict, compression: str = "ZIP", decreasing: bool =
         pos += len(chunks[s])
     with open(path, "wb") as f:
         f.write(prefix + b"".join(struct.pack("<Q", offsets[s]) for s in starts) + body)
-    ARRAYS[str(path)] = {n: channels[n] for n in names} | {"_origin": origin}
+    ARRAYS[str(path)] = held | {"_origin": origin}
     return {"chunks": len(starts), "compressed": compressed}
 
 
@@ -221,7 +471,7 @@ def _blender(rng, layer="View Layer", dtype=np.float16, depth_dtype=np.float32, 
 
 
 # ------------------------------------------------------------------- the cases
-@pytest.mark.parametrize("compression", ["NONE", "RLE", "ZIPS", "ZIP"])
+@pytest.mark.parametrize("compression", ["NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24"])
 @pytest.mark.parametrize("ptype", ["HALF", "FLOAT", "UINT"])
 def test_multilayer_matches_the_jax_tool(jax_tool, tmp_path, monkeypatch, compression, ptype):
     dtype = {"HALF": np.float16, "FLOAT": np.float32, "UINT": np.uint32}[ptype]
@@ -230,6 +480,8 @@ def test_multilayer_matches_the_jax_tool(jax_tool, tmp_path, monkeypatch, compre
     for c in "RGB":
         ch[f"View Layer.Combined.{c}"] = smooth(rng, H, W, dtype)
     ch["View Layer.Depth.Z"] = (smooth(rng, H, W, np.float32) * 9 + 7).astype(dtype)
+    if compression == "PIZ":  # FLOAT samples on a 2^-10 grid: few low words, so that a 37 x 29 chunk shrinks
+        ch = {k: np.round(v * 1024) / 1024 if v.dtype == np.float32 else v for k, v in ch.items()}
     stats = write_exr(tmp_path / "f.exr", ch, compression)
     if compression != "NONE":
         assert stats["compressed"] > 0  # the codec's decoder ran
@@ -237,8 +489,13 @@ def test_multilayer_matches_the_jax_tool(jax_tool, tmp_path, monkeypatch, compre
     assert sorted(os.listdir(out)) == ["dm_00003.npy", "im_00003.png", "in_00003.npy"]
     hdr, planes = exr.read_exr(str(tmp_path / "f.exr"))
     assert hdr.compression == compression
+    held = ARRAYS[str(tmp_path / "f.exr")]  # the arrays, FLOAT rounded to 24 bits by PXR24
     for name, arr in ch.items():
-        assert planes[name].dtype == arr.dtype and np.array_equal(planes[name], arr), name
+        assert planes[name].dtype == arr.dtype and np.array_equal(planes[name], held[name]), name
+    if compression == "PIZ":  # the numpy decoder reads the same bits
+        _, plain = exr.read_exr(str(tmp_path / "f.exr"), native=False)
+        for name in ch:
+            assert np.array_equal(plain[name].view(np.uint8), planes[name].view(np.uint8)), name
 
 
 @pytest.mark.parametrize("compression", ["NONE", "ZIP"])
@@ -303,7 +560,7 @@ def test_halves_are_float16_rounding(tmp_path):
     assert np.array_equal(depth, f)  # FLOAT bit-equal
 
 
-@pytest.mark.parametrize("codec", ["PIZ", "PXR24", "B44", "B44A", "DWAA", "DWAB"])
+@pytest.mark.parametrize("codec", ["B44", "B44A", "DWAA", "DWAB"])
 def test_unsupported_compression_raises_naming_it(tmp_path, codec):
     write_exr(tmp_path / "f.exr", {"R": np.zeros((4, 4), np.float16)}, codec)
     with pytest.raises(ValueError, match=f"f.exr: {codec} compression is not supported"):
@@ -329,3 +586,87 @@ def test_subsampled_channels_and_missing_rgb_raise(tmp_path):
     write_exr(tmp_path / "norgb.exr", {"View Layer.Depth.Z": np.ones((4, 4), np.float32)}, "ZIP")
     with pytest.raises(ValueError, match="norgb.exr: no RGB channels"):
         t_conv.read_render(str(tmp_path / "norgb.exr"))
+
+
+def test_piz_modular_wavelet_and_both_decoders(tmp_path):
+    """FLOAT and HALF samples whose words take more than 2^14 distinct
+    values in a chunk (ramps of bit patterns, which still compress): the
+    wavelet runs modular (wdec16). 37 rows: a 5-row last chunk. The native
+    and numpy decoders agree bit for bit, chunk by chunk."""
+    ramp = np.arange(37 * 640, dtype=np.uint32).reshape(37, 640)
+    f = (0x3F800000 + ramp).view(np.float32)
+    h = (ramp % 0x7C00).astype(np.uint16).view(np.float16)  # finite halves
+    assert len(np.unique(f[:32].view(np.uint16))) > 1 << 14 and len(np.unique(h[:32])) > 1 << 14
+    stats = write_exr(tmp_path / "f.exr", {"Z": f, "Y": h}, "PIZ")
+    assert stats == {"chunks": 2, "compressed": 2}
+    _, native = exr.read_exr(str(tmp_path / "f.exr"))
+    _, plain = exr.read_exr(str(tmp_path / "f.exr"), native=False)
+    for planes in (native, plain):
+        assert np.array_equal(planes["Z"].view(np.uint32), f.view(np.uint32))
+        assert np.array_equal(planes["Y"].view(np.uint16), h.view(np.uint16))
+    for lines in (32, 5):
+        block = [h[:lines].astype("<f2"), f[:lines].astype("<f4")]  # the file's channel order: Y, Z
+        data = _piz(block)
+        words = exr.piz_words(data, 640, lines, [1, 2])
+        assert np.array_equal(words, exr.piz_words_numpy(data, 640, lines, [1, 2]))
+        assert np.array_equal(words, np.concatenate([b.view("<u2").reshape(-1) for b in block]))
+
+
+def test_pxr24_float_is_24_bit_rounding(tmp_path):
+    """PXR24 keeps HALF and UINT exactly and FLOAT at OpenEXR's 24 bits,
+    specials included; a FLOAT read back is that rounding, bit for bit."""
+    f = np.random.default_rng(9).uniform(-3e4, 3e4, (20, 33)).astype(np.float32)
+    f[0, :6] = [np.inf, -np.inf, np.nan, np.finfo(np.float32).max, 0.0, -0.0]
+    f[1, :3] = np.array([0x7F800001, 0x3F80007F, 0x3F800080], np.uint32).view(np.float32)
+    with np.errstate(over="ignore"):
+        h = f.astype(np.float16)
+    u = np.random.default_rng(10).integers(0, 2**32, (20, 33), dtype=np.uint32)
+    assert write_exr(tmp_path / "f.exr", {"F": f, "H": h, "U": u}, "PXR24")["compressed"] == 2
+    _, planes = exr.read_exr(str(tmp_path / "f.exr"))
+    assert np.array_equal(planes["F"].view(np.uint32), float24(f).view(np.uint32))
+    assert np.array_equal(planes["H"].view(np.uint16), h.view(np.uint16))
+    assert np.array_equal(planes["U"], u)
+    got = planes["F"].view(np.uint32)
+    assert got[1, 0] == 0x7F800100 and got[1, 1] == 0x3F800000 and got[1, 2] == 0x3F800100  # NaN kept; ties
+    assert got[0, 3] == 0x7F7FFF00  # truncated, not rounded to infinity
+
+
+@pytest.mark.parametrize("codec", ["PIZ", "PXR24"])
+def test_damaged_chunks_raise_naming_the_file(codec):
+    block = [smooth(np.random.default_rng(12), 32, 29, np.float16).astype("<f2")]
+    if codec == "PIZ":
+        data = _piz(block)
+        for decode in (exr.piz_words, exr.piz_words_numpy):
+            with pytest.raises(ValueError, match="bad.exr: a PIZ chunk is truncated"):
+                decode(data[:-8], 29, 32, [1], "bad.exr")  # the Huffman stream cut short
+            with pytest.raises(ValueError, match="bad.exr: a PIZ chunk decodes to"):
+                decode(data, 29, 31, [1], "bad.exr")  # one row too many in the stream
+    else:
+        channels = [exr.Channel("R", np.dtype("<f2"))]
+        with pytest.raises(ValueError, match="bad.exr: a PXR24 chunk inflates to 1856 bytes, not 1798"):
+            exr._pxr24(_pxr24(block), channels, 29, 31, "bad.exr")
+
+
+def _openexr_arrays(name: str) -> np.ndarray:
+    """What OPENEXR_STREAMS[name] holds: PIZ, a ramp of bit patterns falling
+    along x and y (the wavelet's differences stay small, so 32 rows
+    shrink); PXR24, a seeded array (FLOAT at OpenEXR's 24 bits)."""
+    codec, ptype = name.split("_")
+    if codec == "PIZ":
+        y, x = np.mgrid[0:33, 0:4]
+        fall = 200 - (4 * y + x)
+        return ((0x3C00 + fall).astype(np.uint16).view(np.float16) if ptype == "HALF"
+                else (0x3F803F80 + fall).astype(np.uint32).view(np.float32))
+    a = (np.random.default_rng(19).integers(0, 6, (33, 4)) / 8 + 0.25).astype(np.float32)
+    a[5:9] = 0.0
+    return a.astype(np.float16) if ptype == "HALF" else float24(a)
+
+
+@pytest.mark.parametrize("name", sorted(OPENEXR_STREAMS))
+def test_files_written_by_openexr(tmp_path, name):
+    (tmp_path / "f.exr").write_bytes(base64.b64decode(OPENEXR_STREAMS[name]))
+    want = _openexr_arrays(name)
+    for native in (True, False):
+        hdr, planes = exr.read_exr(str(tmp_path / "f.exr"), native=native)
+        assert hdr.compression == name.split("_")[0] and list(planes) == ["Y"]
+        assert planes["Y"].dtype == want.dtype and np.array_equal(planes["Y"].view(np.uint8), want.view(np.uint8))

@@ -112,7 +112,7 @@ def _run_port(argv):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(generate, "flagship_config", lambda dataset, dtype: port_config(TINY))
         mp.setattr(generate, "SceneGenConfig", functools.partial(generate.SceneGenConfig, tsdf_mem_cap_gb=0.05))
-        generate.main([*argv, "--device", "cpu"])
+        generate.main(["--matmul_precision", "float32", *argv, "--device", "cpu"])  # argv may pick another
 
 
 def _ply_counts(path):
