@@ -80,9 +80,12 @@ the device's idle share):
   both: the splat's keys, z-buffer winners and every depth bit-exact; and
   frame 1 of the map-requery unroll under parity's gates; then
   grid_accumulate, the map's grid accumulation on the inputs integrate
-  built at the last step of unroll_tsdf and unroll_tsdf_ge, bit-exact
-  against its plain version on the CPU (each map phase counts its
-  launches, one a frame); then
+  built at the last step of unroll_tsdf, unroll_tsdf_ge,
+  integration_clevr_stride2 and unroll_tsdf_batched, bit-exact (as words:
+  -0.0 is not +0.0) against its plain version on the CPU, with each case's
+  key bits, zero addends and runs, its kernels' device time one by one,
+  and the first route (torch.sort, a gather, the walk) timed in turns
+  beside it (each map phase counts its launches, one a frame); then
   parity_map_batched, one batched map-requery step of 2 scenes card
   against CPU in f32 and bf16 (parity's and parity_bf16's gates) and the
   volume after it; then the z-buffer on the keys the pool splat built at
@@ -234,6 +237,7 @@ import copy
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -330,6 +334,16 @@ def device_rows(prof) -> list:
     return sorted(((ns / 1e3, name, n) for name, (ns, n) in agg.items()), reverse=True)
 
 
+PRIMER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: profiler_primer's, left out of every reading
+
+
+def profiler_primer(torch) -> None:
+    """About 2.5 ms of device work to launch first and last in a profiler
+    session: late in this process traces were seen to miss some of a
+    session's device work (PERF.md), which these spin kernels now take."""
+    torch.cuda._sleep(5_000_000)
+
+
 def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = None) -> float | None:
     """Device time per fn() call: the summed time of every kernel that
     `iters` calls launched (only those whose name matches the regex
@@ -348,10 +362,12 @@ def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = N
     torch.cuda.synchronize()
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_primer(torch)
             for _ in range(iters):
                 fn()
+            profiler_primer(torch)
             torch.cuda.synchronize()
-        rows = device_rows(prof)
+        rows = [r for r in device_rows(prof) if PRIMER_KERNEL not in r[1]]
         if rows:
             us = sum(r[0] for r in rows if match is None or re.search(match, r[1]))
             return us / 1e3 / iters
@@ -1586,18 +1602,122 @@ def capture_grid_inputs(torch, gen) -> dict:
     return keep
 
 
+def capture_grid_inputs_batched(torch, gen, depth) -> dict:
+    """capture_grid_inputs for the batched map: one more integrate of the
+    plan's last step, every scene's frame at once (depth [S, G, H, W] from
+    scene_expansion_batched), into a copy of `batched_volume`."""
+    from sgam_neurips22_tpu_torch.mapping import tsdf
+
+    plan = gen.build_plan()
+    t = len(plan["tgt"]) - 1
+    vol, keep, orig = gen.batched_volume.to(gen.device), {}, tsdf.grid_accumulate
+
+    def spy(grid, idx, vals):
+        keep.update(grid=grid.clone(), idx=idx.clone(), vals=vals.clone())
+        return orig(grid, idx, vals)
+
+    tsdf.grid_accumulate = spy
+    try:
+        tsdf.integrate(vol, gen.tsdf_cfg, depth[:, plan["tgt"][t]], None, gen.ks[0], plan["tgt_w2c"][t])
+    finally:
+        tsdf.grid_accumulate = orig
+    torch.cuda.synchronize()
+    return keep
+
+
+def grid_input_stats(torch, grid, idx, vals) -> dict:
+    """What shapes the grid accumulation's work: the samples, the key bits
+    the grid's size needs, the touched voxels, the zero addends (integrate's
+    masked samples add 0.0 at voxel 0), voxel 0's run and the longest run
+    of any other voxel."""
+    keys, counts = torch.unique(idx, return_counts=True)
+    other = counts[keys != 0]
+    return {"samples": idx.numel(), "voxels": grid.numel(), "key_bits": max(1, (grid.numel() - 1).bit_length()),
+            "touched_voxels": int(keys.numel()), "zero_addends": int((vals == 0).sum()),
+            "zero_addends_at_key_0": int(((vals == 0) & (idx == 0)).sum()), "key_0_run": int((idx == 0).sum()),
+            "longest_other_run": int(other.max()) if other.numel() else 0}
+
+
+def kernel_split(torch, fn, sessions: int = 8, warmup: int = 3) -> dict:
+    """The kernels (and device memsets) one fn() call runs, in launch
+    order, with their device us: one profiler session a call (between
+    primers), `sessions` of them, averaged over the sessions whose sequence
+    of names is the longest, and of those the most common (a trace that
+    misses events shortens its sequence). {"kernels": [(name, us)],
+    "sessions": kept / run, "lengths": the sequences' lengths seen};
+    kernels is None where no session traced any device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    seqs = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_primer(torch)
+            fn()
+            profiler_primer(torch)
+            torch.cuda.synchronize()
+        seqs.append(tuple((name, ns) for _, name, ns in sorted(
+            (ev.start_ns(), ev.name(), ev.duration_ns()) for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0 and not ev.is_user_annotation()
+            and PRIMER_KERNEL not in ev.name())))
+    names = [tuple(n for n, _ in q) for q in seqs if q]
+    if not names:
+        return {"kernels": None, "sessions": f"0/{sessions}", "lengths": []}
+    common = max(set(names), key=lambda n: (len(n), names.count(n)))  # a missed event only shortens one
+    kept = [q for q in seqs if tuple(n for n, _ in q) == common]
+    return {"kernels": [(short_name(common[j]), sum(q[j][1] for q in kept) / len(kept) / 1e3)
+                        for j in range(len(common))],
+            "sessions": f"{len(kept)}/{sessions}", "lengths": sorted({len(n) for n in names})}
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its return type, anonymous namespace,
+    template arguments and parameters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name, maxsplit=1)[0].strip() or name
+
+
+def grid_accumulate_sorted(torch, grid, idx, vals) -> None:
+    """The grid accumulation's first CUDA route, timed beside the
+    op as old_ms: torch.sort of the keys, a gather of the values, then
+    csrc/grid_accumulate.cu's grid_accumulate_sorted_launch, one thread
+    walking each key's run."""
+    from sgam_neurips22_tpu_torch.ops import cuda_build
+    from sgam_neurips22_tpu_torch.ops import grid_accumulate as acc
+
+    keys, order = torch.sort(idx, stable=True)
+    ordered = vals[order]
+    lib = cuda_build.library("grid_accumulate", acc._SIGNATURES)
+    rc = lib.grid_accumulate_sorted_launch(keys.data_ptr(), ordered.data_ptr(), grid.data_ptr(), keys.numel(),
+                                           torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(rc, "grid_accumulate_sorted")
+
+
 def check_grid_accumulate(torch, cases: dict, failures) -> dict:
-    """The map's grid accumulation (csrc/grid_accumulate.cu after a stable
-    sort) against its plain version on the CPU (index_add_, sequential, as
-    the JAX package's scatter-add on the CPU), bit-exact, at the inputs
+    """The map's grid accumulation (csrc/grid_accumulate.cu: zero addends
+    dropped, a radix sort with the value as payload, the walk) against its
+    plain version on the CPU (index_add_, sequential, as the JAX package's
+    scatter-add on the CPU), bit-exact as 32-bit words, at the inputs
     integrate built at the last step of each map phase in `cases`; the
     plain version on the card (index_add_'s float atomics) is reported
-    beside it. Times: the whole call (sort, gather, kernel), index_add_
-    and index_put_(accumulate=True) on the card; the bound is the bytes,
-    each sample's int32 id and f32 value read once and each touched
-    voxel's f32 read and written once. The reported times and bound are
-    the first case's; every case's are under "shapes"."""
-    from sgam_neurips22_tpu_torch.ops.grid_accumulate import grid_accumulate, grid_accumulate_plain
+    beside it. Per case: the inputs' key bits, zero addends and runs
+    (grid_input_stats) and the sort's digit plan; times of the whole call,
+    index_add_ and index_put_(accumulate=True) on the card (timings); the
+    first route (grid_accumulate_sorted) and the op timed in turns (old,
+    new, new, old: old_ms is the mean of the two old turns, ms the median
+    of the two new turns and timings' reading, since a trace late in this
+    process was seen to miss events and read low); each kernel's device
+    time in launch order for both routes (kernel_split). The bound
+    is the bytes, each sample's int32 id and f32 value read once and each
+    touched voxel's f32 read and written once. The reported times and
+    bound are the first case's; every case's are under "shapes"."""
+    from sgam_neurips22_tpu_torch.ops.grid_accumulate import digit_plan, grid_accumulate, grid_accumulate_plain
+
+    def words(t):
+        return t.cpu().view(torch.int32)
 
     shapes = []
     for name, c in cases.items():
@@ -1606,21 +1726,36 @@ def check_grid_accumulate(torch, cases: dict, failures) -> dict:
         ref = grid_accumulate_plain(grid.to("cpu", copy=True), idx.cpu(), vals.cpu())
         atomics = grid_accumulate_plain(grid.clone(), idx, vals)
         torch.cuda.synchronize()
-        touched = int(torch.unique(idx).numel())
-        b_ms, b_by = bound(8 * idx.numel() + 8 * touched, idx.numel())
+        stats = grid_input_stats(torch, grid, idx, vals)
+        b_ms, b_by = bound(8 * idx.numel() + 8 * stats["touched_voxels"], idx.numel())
         work, lib_idx = grid.clone(), idx.long()
-        row = {"case": name, "shape": {"samples": idx.numel(), "voxels": grid.numel(), "touched_voxels": touched},
-               "bit_exact": torch.equal(out.cpu(), ref), "max_abs_err": float((out.cpu() - ref).abs().max()),
+
+        def new():
+            grid_accumulate(work, idx, vals)
+
+        def old():
+            grid_accumulate_sorted(torch, work, idx, vals)
+
+        turns = [{"route": r, "ms": device_ms(torch, fn), "call_ms": cuda_ms(torch, fn)}
+                 for r, fn in (("old", old), ("new", new), ("new", new), ("old", old))]
+        times = timings(torch, new, lambda: grid_accumulate_plain(work, idx, vals),
+                        lambda: work.index_put_((lib_idx,), vals, accumulate=True))
+        times["ms"] = sorted([times["ms"], turns[1]["ms"], turns[2]["ms"]])[1]
+        row = {"case": name, "shape": stats, "digit_plan": digit_plan(grid.numel()),
+               "bit_exact": torch.equal(words(out), ref.view(torch.int32)),
+               "max_abs_err": float((out.cpu() - ref).abs().max()),
                "plain_on_card_max_abs_err": float((atomics.cpu() - ref).abs().max()),
-               **timings(torch, lambda: grid_accumulate(work, idx, vals),
-                         lambda: grid_accumulate_plain(work, idx, vals),
-                         lambda: work.index_put_((lib_idx,), vals, accumulate=True)),
+               **times, "old_ms": (turns[0]["ms"] + turns[3]["ms"]) / 2,
+               "old_call_ms": (turns[0]["call_ms"] + turns[3]["call_ms"]) / 2,
+               "turns": turns, "split": kernel_split(torch, new), "old_split": kernel_split(torch, old),
                "bound_ms": b_ms, "bound_by": b_by}
         row["ok"] = row["bit_exact"]
         row["bound_share"] = b_ms / row["ms"]
         shapes.append(row)
         if not row["ok"]:
-            failures.append(f"grid_accumulate differs from its plain version on the CPU, case {name}: {row}")
+            failures.append(f"grid_accumulate differs from its plain version on the CPU, case {name}: "
+                            f"{ {k: v for k, v in row.items() if k not in ('split', 'old_split')} }")
+        del out, ref, atomics, work, lib_idx
     return {
         "name": "grid_accumulate", "route": "cuda", "source": "sgam_neurips22_tpu_torch/csrc/grid_accumulate.cu",
         "replaces": "sgam_neurips22_tpu/mapping/tsdf.py:564 (XLA scatter-add, no Pallas kernel)",
@@ -4150,7 +4285,7 @@ def main(argv=None) -> int:
     s2_rep, report["profile_integration_clevr_stride2"], _ = map_phase(
         torch, np, gen_s2, gen_s2.grid.size - 1, counters, failures, "integration_clevr_stride2", card)
     s2_rep["integrate_stride"] = 2
-    del s2_rep["grid_inputs"]
+    grid_cases["map_clevr_stride2_last_step"] = s2_rep.pop("grid_inputs")
     paths["integration_clevr_stride2"] = s2_rep["launches"]
     emit({"phase": "integration_clevr_stride2", **s2_rep})
     del gen_s2
@@ -4167,10 +4302,12 @@ def main(argv=None) -> int:
     want_mb = {"zbuffer_min": mb_frames, "nearest_codeword": mb_frames, "flash_attention_fwd": 7 * mb_frames,
                "flash_attention_dq": 0, "flash_attention_dkv": 0,
                "grid_accumulate": mb_frames + 1}  # seeded_volume fuses the 8 seeds in one call
-    (rgb_mb, _), mb_rep, report["profile_unroll_tsdf_batched"] = unroll_phase(
+    (rgb_mb, depth_mb), mb_rep, report["profile_unroll_tsdf_batched"] = unroll_phase(
         torch, lambda: gen_mb.scene_expansion_batched(seeds_batch), SCENES * mb_frames, (*counters, grid_accumulate),
         want_mb, failures,
         "unroll_tsdf_batched", per_step=SCENES)
+    grid_cases["map_clevr_8_scenes_last_step"] = capture_grid_inputs_batched(torch, gen_mb, depth_mb)
+    del depth_mb
     scenes_differ = not torch.equal(rgb_mb[0, 1], rgb_mb[1, 1])
     mb_rep.update(card=card, scenes=SCENES, frames_per_scene=mb_frames, grid=list(MAP_BATCH_GRID),
                   sources=gen_mb.cfg.effective_num_src, scenes_0_1_differ_at_frame_1=scenes_differ,
