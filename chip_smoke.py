@@ -152,9 +152,10 @@ the device's idle share):
   seeded arrays: the depth and instance files equal to the arrays (HALF as
   np.float16 rounds them), the PNGs to their sRGB; whether this machine
   has OpenEXR is probed, and where it is held against the port's reader;
-  then PIZ and PXR24 files (HALF and FLOAT, 256 wide, 256 or 200 rows)
-  written by this machine's cv2 (OpenEXR inside), which must be able to
-  write them: each read by the port bit-equal to cv2.imread, PXR24 FLOAT
+  then PIZ, PXR24, B44 and B44A files (HALF and FLOAT, 256 wide, 200 to
+  256 rows; B44A with flat blocks, and a B44A file with its channels'
+  pLinear flag set) written by this machine's cv2 (OpenEXR inside), which
+  must be able to write them: each read by the port bit-equal to cv2.imread, PXR24 FLOAT
   also equal to OpenEXR's 24-bit rounding of the written array, a PIZ
   FLOAT file whose chunks reach the modular wavelet, and the seconds a
   file of the native and the numpy PIZ decoders;
@@ -175,6 +176,20 @@ the device's idle share):
   the same launches; then parity_train_bf16, its batch-2 step on the card
   and on the CPU, each held to the CPU's f32 step at a codebook where no
   latent changes codeword, and a planted fault (dV zeroed) that must fail;
+- trace_tools (run right after the kernel checks, early in the process,
+  where profiler sessions lose fewest records): the port's trace tools on
+  the card. One bf16 training step
+  at batch 16 and 4 frames of bf16 CLEVR map re-query at batch 1 (all six
+  hand ops between them), each traced by `utils.profiling.trace` after an
+  untraced run whose hand-op inputs are kept, read by
+  `utils.trace_events` and printed by `parse_trace` and `roofline`: every
+  hand op present with its kernels under it, each hand row's modelled work
+  equal to `roofline.hand_work` at the kept inputs, no hand row under its
+  bound and no other row under its L2 floor (rows under their bound but
+  not their floor are counted: operands in the L2), the card's L2 at
+  least the floor's, and each hand op's kept call traced alone within 5%
+  of device_ms of the same call, where no launch was lost (lost launches
+  are counted and printed, not gated);
 - train_batch1: the same f32 step at batch 1, whose config asks for flash
   attention (as every training YAML does), so that the step runs the
   three attention kernels at [1, 4096, 256] and [1, 256, 512], as at
@@ -220,10 +235,18 @@ the device's idle share):
   splat unroll's PSNR per scene (reported), the bf16 map unroll's stats
   summed over the ranks (their recycled slots equal to the ranks'
   per-scene sum). dp_two_ranks_one_card's batch has halves of two kinds
-  (random images and flat walls), on which both planted faults must fail.
+  (random images and flat walls), on which both planted faults must fail;
+each rank also profiles one more training step and its f32 sharded step,
+whose idle shares must lie in [0, 1] (unless their traces lost launches).
 
-Device times by kernel come from torch.profiler traces, summed from the
-trace's raw events (device_rows). Each phase prints one JSON line with its
+Device times by kernel come from torch.profiler traces read by
+`sgam_neurips22_tpu_torch/utils/trace_events.py` (device_ms,
+kernel_split, profile_unroll: primed sessions whose primers take the
+records a session loses at its edges; busy time is the union of the
+card's record intervals, and a session that lost a launch of its work
+gives none); the seeded cases and helpers that the studies share with
+this script live in `sgam_neurips22_tpu_torch/studies/cases.py`, the
+hand ops' FLOPs and bytes in `roofline.hand_work`. Each phase prints one JSON line with its
 seconds; --out DIR also writes the details to DIR/chip_smoke.json and
 nvcc's register report to DIR/chip_smoke_ptxas.txt. The last line is
 {"ok": true, "device": {...}} and is printed only when every check passed.
@@ -243,16 +266,50 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM data-sheet peaks (NVIDIA, dense): HBM3 bandwidth, the f32 rate
-# of the CUDA cores and the TF32 rate of the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
-SEED = 0
-H = W = 256
-FRAMES = 24  # frames generated per unroll: the flythrough grid is (FRAMES + 1) x 1
+from sgam_neurips22_tpu_torch.roofline import HAND_OPS, bound_parts, hand_work, tc_bound_s
+from sgam_neurips22_tpu_torch.studies.cases import (
+    FRAMES,
+    GE_MAP_FRAMES,
+    MAP_BATCH_GRID,
+    MAP_GRID,
+    MAP_STRIDE2_GRID,
+    SCENES,
+    SEED,
+    TRAIN_BATCH,
+    H,
+    W,
+    batched_pool_telemetry,
+    capture_grid_inputs,
+    capture_grid_inputs_batched,
+    collision_case,
+    grid_accumulate_sorted,
+    grid_input_stats,
+    last_step,
+    map_config,
+    parity_train_bf16,
+    pool_telemetry,
+    projected,
+    psnr,
+    ptxas_summary,
+    seed_frames,
+    train_batch,
+    train_config,
+    update_gap,
+    zbuffer_cases,
+)
+from sgam_neurips22_tpu_torch.utils.trace_events import (
+    F32_FLOP_PER_S,
+    L2_BYTES,
+    PROFILER_MISSES,
+    ZB_KERNELS,
+    card_line,
+    cuda_ms,
+    device_ms,
+    kernel_split,
+    profile_unroll,
+)
+
 TOPK_FRAMES = 8  # frames of each top-k unroll
-SCENES = 8  # scenes of the batched unroll, as bench.py's batched_8_scenes
 BATCHED_F32_FRAMES = 12  # frames a scene of the f32 8-scene unroll (cut from FRAMES for the run's time)
 # the forward: the main path's two shapes, ragged S, and together every (C,
 # BQ) tile that its launch rule picks on an H100 (BQ 64 / 16, 32 / 16 at C=512);
@@ -275,104 +332,12 @@ VQ_TIES = ((100, 9000), (130, 250), (16, 19))
 # google_earth's codebook of 4096 at the batch-1 and the 8-scene unroll's P,
 # and its exact-tie pairs (two K-split ranges, one tile, one warp)
 VQ_GE_K, VQ_GE_P, VQ_GE_TIES = 4096, (256, SCENES * 256), ((100, 3000), (130, 250), (16, 19))
-# the z-buffer merge's map-requery pool splat: one call merges 2 sub-chunks of
-# 2^18 slots for each of 8 scenes (sgam_neurips22_tpu/mapping/tsdf.py:123,
-# 139, 929-940); keys carry a 20-bit slot; CLEVR's pool (near, far) from
-# auto_config (depth range (7, 16), sdf_trunc 0.5); ring recycling
-# interleaves runs of POOL_RUN slots
-POOL_ROWS, POOL_P, POOL_IDX_BITS, POOL_RUN, POOL_INVALID = 16, 1 << 18, 20, 256, 0.3
-POOL_NEAR_FAR = (0.8 * 7.0 - 0.5, 1.2 * 16.0 + 0.5)
-ZB_LARGE = 1024  # the side of an image whose window would hold too few rows: the l2 route
-ZB_KERNELS = "zbuffer_tile_kernel|zbuffer_l2_kernel"  # the z-buffer's own kernels in a profile
-# calls whose profiler trace held no device time (device_ms, profile_unroll)
-PROFILER_MISSES: list[str] = []
 # training step x2, ragged S x2, a batch-1 training step's two
 BACKWARD_SHAPES = ((16, 4096, 256), (16, 256, 512), (2, 300, 128), (2, 300, 64), *BATCH1_SHAPES)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip()
-
-
-def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_rows(prof) -> list:
-    """[(device us, kernel name, calls)] of a finished torch.profiler trace,
-    largest first: the time of every event on the card summed by name (for
-    a kernel, what key_averages() gives as its self device time). Read from
-    the trace's raw events: key_averages() builds a Python event tree first,
-    which took 7.5 s for the batch-1 flythrough's 44.6k kernels on an H100's
-    host, against 0.4 s for these sums."""
-    from torch.autograd import DeviceType
-
-    agg: dict[str, list] = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0 and not ev.is_user_annotation():
-            row = agg.setdefault(ev.name(), [0, 0])
-            row[0] += ev.duration_ns()
-            row[1] += 1
-    return sorted(((ns / 1e3, name, n) for name, (ns, n) in agg.items()), reverse=True)
-
-
-PRIMER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: profiler_primer's, left out of every reading
-
-
-def profiler_primer(torch) -> None:
-    """About 2.5 ms of device work to launch first and last in a profiler
-    session: late in this process traces were seen to miss some of a
-    session's device work (PERF.md), which these spin kernels now take."""
-    torch.cuda._sleep(5_000_000)
-
-
-def device_ms(torch, fn, iters: int = 50, warmup: int = 5, match: str | None = None) -> float | None:
-    """Device time per fn() call: the summed time of every kernel that
-    `iters` calls launched (only those whose name matches the regex
-    `match`, if given), from torch.profiler, over `iters`. Unlike cuda_ms
-    it leaves out the gaps while the host prepares each launch. A trace
-    that holds no device time at all (the profiler could not trace the
-    card) is taken once more; if that one holds none either, the miss goes
-    into PROFILER_MISSES and the time comes from CUDA events (cuda_ms),
-    or is None where `match` asks for some kernels only."""
-    import re
-
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            profiler_primer(torch)
-            for _ in range(iters):
-                fn()
-            profiler_primer(torch)
-            torch.cuda.synchronize()
-        rows = [r for r in device_rows(prof) if PRIMER_KERNEL not in r[1]]
-        if rows:
-            us = sum(r[0] for r in rows if match is None or re.search(match, r[1]))
-            return us / 1e3 / iters
-    PROFILER_MISSES.append(f"device_ms(match={match!r})")
-    return None if match else cuda_ms(torch, fn, iters, warmup)
 
 
 def timings(torch, kernel, plain, library) -> dict:
@@ -389,113 +354,14 @@ def timings(torch, kernel, plain, library) -> dict:
     return out
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def projected(torch, np, grid, k, n_src: int, depth_range, rng, dev, stride: int = 1, nearest: bool = True):
-    """(pix [1, P, 2], z [1, P], valid [1, P]) of n_src frames with depths
-    uniform in depth_range at grid rows 0..n_src-1 projected into row
-    n_src, in source-scanline order (P = n_src * (H / stride) * (W /
-    stride), each source's pixels at its phase of the strided splat);
-    nearest=False keeps the points behind the camera, as collision "last"
-    does."""
-    from sgam_neurips22_tpu_torch.geometry.camera import pose_matrix
-    from sgam_neurips22_tpu_torch.geometry.splat import project_points
-
-    t_tgt = grid.w2c(n_src)
-    rel = np.stack([t_tgt @ np.linalg.inv(grid.w2c(i)) for i in range(n_src)]).astype(np.float32)
-    depths = torch.tensor(rng.uniform(*depth_range, (1, n_src, H, W)), dtype=torch.float32, device=dev)
-    ks = torch.tensor(np.tile(np.asarray(k, np.float32), (n_src, 1, 1)), device=dev)
-    src2tgt = pose_matrix(torch.tensor(rel[:, :3, :3], device=dev), torch.tensor(rel[:, :3, 3], device=dev))
-    return project_points(depths, ks[:1], ks[None], src2tgt[None], splat_stride=stride, nearest=nearest)
-
-
-def pool_keys(torch, pix, z, valid, rng):
-    """(pix, key) of the map-requery pool splat (sgam_neurips22_tpu/mapping/
-    tsdf.py:862-880, 931-940): the uint32 key zq << 20 | slot, zq the 12-bit
-    z over CLEVR's pool range, sign-flipped into int32, so that every key
-    with zq < 2048 is negative; POOL_INVALID of the slots invalid (every
-    point off the image among them), with pixel 0 and key INT32_MAX."""
-    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
-
-    near, far = POOL_NEAR_FAR
-    b, p = z.shape
-    zq = torch.clamp((z - near) / (far - near) * 4095.0, 0, 4095).long()
-    key = ((zq << POOL_IDX_BITS) | torch.arange(p, device=z.device)) ^ 0x80000000
-    key = torch.where(key >= 2**31, key - 2**32, key).to(torch.int32)
-    keep = (1 - POOL_INVALID) / float(valid.float().mean())  # so that POOL_INVALID of all slots are invalid
-    ok = valid & torch.tensor(rng.random((b, p)) < keep, device=z.device)
-    return torch.where(ok, pix, 0), torch.where(ok, key, IMAX)
-
-
-def zbuffer_cases(torch, np, gen, rng) -> dict:
-    """{case: (pix, key, h, w)}, each at the shape and in the point order of
-    one caller of the z-buffer merge (random depths, seeded):
-
-    - flythrough: the batch-1 unroll's splat, 5 clevr sources at grid rows
-      0-4 projected into row 5, depths in (8, 14): [1, 327680];
-    - scenes_8: 8 such splats, the 8-scene unroll: [8, 327680];
-    - train: the training step's, train_batch's n_src 2 with identity
-      poses, so that every point lands on its own pixel and each pixel
-      takes an exact 2-way collision: [16, 131072];
-    - google_earth: 3 sources of the google_earth grid with its intrinsics
-      at 256^2 and depths in (0.1, 4.77), whose forward motion spreads a
-      chunk's points over many target rows: [1, 196608];
-    - pool_coherent: the map-requery pool splat's one call at 8 scenes (2
-      sub-chunks of 2^18 slots each), slots booked in source-scanline
-      order (4 clevr sources a row), keys from pool_keys: [16, 262144];
-    - pool_recycled: the same points with the slots in runs of POOL_RUN,
-      the runs shuffled, as ring recycling leaves them;
-    - large: uniform ids over a ZB_LARGE^2 image, 20% invalid: [1, 2^20],
-      4 MB of winners, 18 times what a block's shared memory holds;
-    - flythrough_stride2, scenes_8_stride2, google_earth_stride2: the
-      flythrough, the 8-scene unroll and google_earth at splat_stride 2,
-      (H/2)(W/2) points a source: [1, 81920], [8, 81920], [1, 49152]."""
-    from sgam_neurips22_tpu_torch.geometry.camera import pose_matrix
-    from sgam_neurips22_tpu_torch.geometry.splat import packed_keys, project_points
-    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
-    from sgam_neurips22_tpu_torch.pipeline.trajectory import prepare_grid
-
-    dev = gen.device
-    clevr, clevr_depths = (gen.grid, gen.grid.K), (8, 14)
-    fly = [packed_keys(*projected(torch, np, *clevr, 5, clevr_depths, rng, dev), W) for _ in range(SCENES)]
-    cases = {"flythrough": (*fly[0], H, W), "scenes_8": (*(torch.cat(x) for x in zip(*fly)), H, W)}
-    tb = train_batch(torch, np, TRAIN_BATCH, dev)
-    proj = project_points(tb["src_depths"], tb["Ks"][:, 0], tb["Ks"], pose_matrix(tb["R_rels"], tb["t_rels"]))
-    cases["train"] = (*packed_keys(*proj, W), H, W)
-    ge = prepare_grid("google_earth", (4, 1))
-    cases["google_earth"] = (*packed_keys(*projected(torch, np, ge, ge.K, 3, (0.1, 4.77), rng, dev), W), H, W)
-    rows = [projected(torch, np, *clevr, 4, clevr_depths, rng, dev) for _ in range(POOL_ROWS)]
-    pix, z, valid = (torch.cat(x) for x in zip(*rows))
-    pix = pix[..., 1] * W + pix[..., 0]
-    cases["pool_coherent"] = (*pool_keys(torch, pix, z, valid, rng), H, W)
-    runs = torch.tensor(np.argsort(rng.random((POOL_ROWS, POOL_P // POOL_RUN)), axis=1), device=dev)
-    order = (runs[:, :, None] * POOL_RUN + torch.arange(POOL_RUN, device=dev)).reshape(POOL_ROWS, POOL_P)
-    cases["pool_recycled"] = (*pool_keys(torch, *(x.gather(1, order) for x in (pix, z, valid)), rng), H, W)
-    n = ZB_LARGE * ZB_LARGE
-    lp = torch.tensor(rng.integers(0, n, (1, n)), dtype=torch.int32, device=dev)
-    lk = torch.tensor(rng.integers(-2**31, IMAX, (1, n)), dtype=torch.int32, device=dev)
-    bad = torch.tensor(rng.random((1, n)) < 0.2, device=dev)
-    cases["large"] = (torch.where(bad, 0, lp), torch.where(bad, IMAX, lk), ZB_LARGE, ZB_LARGE)
-    fly2 = [packed_keys(*projected(torch, np, *clevr, 5, clevr_depths, rng, dev, 2), W) for _ in range(SCENES)]
-    cases["flythrough_stride2"] = (*fly2[0], H, W)
-    cases["scenes_8_stride2"] = (*(torch.cat(x) for x in zip(*fly2)), H, W)
-    ge2 = projected(torch, np, ge, ge.K, 3, (0.1, 4.77), rng, dev, 2)
-    cases["google_earth_stride2"] = (*packed_keys(*ge2, W), H, W)
-    return cases
-
-
-def collision_case(torch, rng, b: int, p: int, dev):
-    """Every point on one of 1024 pixels, 20% invalid, keys over the whole
-    int32 range: about 256 points a pixel at P = 327680."""
-    from sgam_neurips22_tpu_torch.ops.zbuffer import IMAX
-
-    cp = torch.tensor(rng.integers(0, 1024, (b, p)), dtype=torch.int32, device=dev)
-    ck = torch.tensor(rng.integers(-2**31, IMAX, (b, p)), dtype=torch.int32, device=dev)
-    bad = torch.tensor(rng.random((b, p)) < 0.2, device=dev)
-    return torch.where(bad, 0, cp), torch.where(bad, IMAX, ck)
+def hand_bound(name: str, dims, concrete=(), touched: int = 0) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, bound_tc_ms) of one call of the hand op `name`
+    at input shapes `dims`: the roofline tool's bound of its work
+    (`roofline.hand_work`, `bound_parts`: at the f32 rate of the CUDA
+    cores) and its 3xTF32 bound (`tc_bound_s`)."""
+    w = hand_work(f"sgam::{name}", dims, concrete, touched)
+    t_bytes, t_ops = bound_parts(w, None)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", tc_bound_s(w) * 1e3
 
 
 def zbuffer_edge_cases(torch, rng, dev) -> dict:
@@ -560,7 +426,7 @@ def check_zbuffer(torch, np, gen, failures):
         ok_case, err_case = exact(pix, key, h, w)
         ok_coll, err_coll = exact(*collision_case(torch, rng, b, p, dev), h, w)
         base, idx = torch.full((b, h * w), IMAX, dtype=torch.int32, device=dev), pix.long()
-        b_ms, b_by = bound(2 * 4 * b * p + 4 * b * h * w, 0)
+        b_ms, b_by, _ = hand_bound("zbuffer_min", [[b, p], [b, p]], ("", "", h, w))
         row = {
             "case": name, "shape": {"pix": [b, p], "pixels": h * w}, **zbuffer_plan(b, p, h, w)._asdict(),
             "ok": ok_case and ok_coll,
@@ -703,11 +569,11 @@ def check_nearest_codeword(torch, codebook, failures):
         torch.cuda.synchronize()
         mismatches, ties_ok = near_ties_ok(z, cb, idx, pidx)
         share = distance_gate_share(z, cb, idx, dist)
-        b_ms, b_by = bound(4 * (p * d + k * d) + 8 * p, 2.0 * p * k * d)
+        b_ms, b_by, b_tc = hand_bound("nearest_codeword", [[p, d], [k, d]])
         row = {"case": name, "shape": {"P": p, "K": k, "D": d}, "index_mismatches": mismatches,
                "near_ties_ok": ties_ok, "max_abs_err": float((dist - pdist).abs().max()), "gate_share": share,
                "plain_gate_share": distance_gate_share(z, cb, pidx, pdist), "bound_ms": b_ms,
-               "bound_by": b_by, "bound_tc_ms": 3 * 2.0 * p * k * d / TF32_FLOP_PER_S * 1e3}
+               "bound_by": b_by, "bound_tc_ms": b_tc}
         if name.startswith("clustered"):
             row["ok"] = ties_ok and share <= 1.0
         elif name.startswith("exact ties"):
@@ -773,7 +639,7 @@ def check_flash_attention(torch, failures):
         tol = 2e-5 if s == 300 else 1e-4
         ok_s = err <= tol and lse_rel <= 1e-5
         ok &= ok_s
-        b_ms, b_by = bound(4 * (4 * b * s * c + b * s), 4.0 * b * s * s * c)
+        b_ms, b_by, b_tc = hand_bound("flash_attention_fwd", [[b, s, c]] * 3)
         shapes.append({
             "shape": [b, s, c], "block_rows": flash_attention_fwd_block_rows(b, s, c, q.device), "ok": ok_s,
             "max_abs_err": err, "out_tol": tol, "lse_max_rel_err": lse_rel, "lse_tol_rel": 1e-5,
@@ -782,7 +648,7 @@ def check_flash_attention(torch, failures):
             **timings(torch, lambda: flash_attention_fwd(q, k, v),
                       lambda: flash_attention_plain(q, k, v),
                       lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
-            "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": 3 * 4.0 * b * s * s * c / TF32_FLOP_PER_S * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_tc,
         })
         del q, k, v, out, lse, pout, plse
     if not ok:
@@ -851,11 +717,11 @@ def check_flash_backward(torch, failures) -> list:
         qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
         lib_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
         library = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True)  # noqa: E731
-        for name, kernel, plain, n_out, products, grads in (
-            ("flash_attention_dq", flash_attention_dq, flash_attention_dq_plain, 1, 3, ("dq",)),
-            ("flash_attention_dkv", flash_attention_dkv, flash_attention_dkv_plain, 2, 4, ("dk", "dv")),
+        for name, kernel, plain, grads in (
+            ("flash_attention_dq", flash_attention_dq, flash_attention_dq_plain, ("dq",)),
+            ("flash_attention_dkv", flash_attention_dkv, flash_attention_dkv_plain, ("dk", "dv")),
         ):
-            b_ms, b_by = bound(4 * ((4 + n_out) * b * s * c + 2 * b * s), 2.0 * products * b * s * s * c)
+            b_ms, b_by, b_tc = hand_bound(name, [[b, s, c]] * 4 + [[b, s]] * 2)
             idx = [("dq", "dk", "dv").index(x) for x in grads]
             rows[name].append({
                 "shape": [b, s, c], "ok": ok, "max_abs_err": max(errs[i] for i in idx),
@@ -863,7 +729,7 @@ def check_flash_backward(torch, failures) -> list:
                 **timings(torch, lambda: kernel(q, k, v, dout, lse, dd), lambda: plain(q, k, v, dout, lse, dd),
                           library),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "bound_tc_ms": 3 * 2.0 * products * b * s * s * c / TF32_FLOP_PER_S * 1e3,
+                "bound_tc_ms": b_tc,
             })
         del q, k, v, dout, out, lse, dd, qg, kg, vg, lib_out, library
     kernels = []
@@ -884,27 +750,6 @@ def check_flash_backward(torch, failures) -> list:
     return kernels
 
 
-def ptxas_summary(reports: dict) -> dict:
-    """{kernel function: registers and spill bytes} from nvcc's -Xptxas -v."""
-    import re
-
-    out = {}
-    for log in reports.values():
-        fn = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-                out[fn] = {}
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and fn:
-                out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                out[fn]["registers"] = int(m.group(1))
-    return out
-
-
 def model_gflop(torch, cfg) -> dict:
     """FLOPs of one frame's encode and decode at 256^2, counted with
     torch.utils.flop_counter on the meta device (no compute)."""
@@ -923,60 +768,6 @@ def model_gflop(torch, cfg) -> dict:
                 fn()
             out[name] = counter.get_total_flops() / 1e9
     return out
-
-
-KERNEL_GROUPS = (  # profiler kernel name -> layer, first match wins
-    ("nccl", "collectives (NCCL)"),
-    ("flash_fwd_kernel", "ours: flash_attention_fwd"),
-    ("flash_dq_kernel", "ours: flash_attention_dq"),
-    ("flash_dkv_kernel", "ours: flash_attention_dkv"),
-    (ZB_KERNELS, "ours: zbuffer_min"),
-    ("search_kernel|finalize_kernel", "ours: nearest_codeword"),
-    ("fprop|dgrad|wgrad|cudnn|nchwToNhwc|nhwcToNchw|conv|fft|pointwise_mult_and_sum_complex|gemm_cf32",
-     "conv (cuDNN: implicit GEMM, FFT)"),
-    ("gemm", "matmul (attention, plain GEMMs)"),
-    ("batch_norm|bn_", "BatchNorm (discriminator)"),
-    ("adam|Adam|multi_tensor", "optimizer (Adam)"),
-    ("softmax|SoftMax", "softmax"),
-    ("reduce_kernel", "reductions (GroupNorm stats, splat z range)"),
-    ("", "elementwise / copies / index"),
-)
-
-
-def profile_unroll(torch, unroll, frames: int, timed_s: float) -> dict:
-    """Device time by kernel over one more call of unroll(), which makes
-    `frames` frames, grouped by layer, and the device's idle share:
-    1 - device time / the timed unroll's wall time (the profiler itself
-    slows the host, so its own wall time is not used). Where the trace
-    holds no device time (the profiler could not trace the card), the
-    device time and idle share are None, not measured, and the miss goes
-    into PROFILER_MISSES."""
-    import re
-
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # host ops untraced: they cost ~30 s to sort
-        unroll()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = device_rows(prof)
-    busy_s = sum(r[0] for r in rows) / 1e6
-    if not rows:
-        PROFILER_MISSES.append("profile_unroll")
-    groups: dict[str, float] = {}
-    for us, key, _ in rows:
-        label = next(lab for pat, lab in KERNEL_GROUPS if re.search(pat, key))
-        groups[label] = groups.get(label, 0.0) + us / 1e3 / frames
-    return {
-        "profiled_wall_s": wall, "device_busy_ms_per_frame": busy_s * 1e3 / frames if rows else None,
-        "device_idle_share": 1.0 - busy_s / timed_s if rows else None,
-        "ms_per_frame_by_layer": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-        "conv_kernels": sorted({k[:120] for _, k, _ in rows
-                                if next(lab for pat, lab in KERNEL_GROUPS if re.search(pat, k)).startswith("conv")}),
-        "top": [{"kernel": k[:120], "ms": us / 1e3, "calls": n} for us, k, n in rows[:25]],
-    }
 
 
 def parity_step(torch, gen, cpu_model, failures, seeds_batch=None, batches=None) -> dict:
@@ -1094,49 +885,7 @@ def parity_step_bf16(torch, gen, cpu_model16, cpu_model, failures, seeds_batch=N
     return out
 
 
-def psnr(torch, a, b) -> list:
-    """PSNR in dB of each frame of rgb a against b ([G, H, W, 3] in [-1, 1],
-    so a peak-to-peak range of 2)."""
-    mse = ((a.float() - b.float()) ** 2).flatten(1).mean(1)
-    return [float(x) for x in 10 * torch.log10(4.0 / mse.clamp(min=1e-20))]
-
-
-TRAIN_BATCH = 16  # bench.py --config train_conditional
 TRAIN_STEPS = 3
-TRAIN_LR = 1e-4  # bench.py bench_train
-
-
-def train_config(torch, bs: int, dtype: str = "float32"):
-    """The conditional-generation training configuration of `bench.py
-    --config train_conditional` on the flagship model (phase
-    conditional_generation, n_embed 16384, depth_range (7, 16), as JAX's
-    flagship_config): remat, flash attention (`flash_attention=True`, as
-    bench.py sets it: every attention block takes it, at any batch),
-    LossConfig(disc_start=0), LR 1e-4; with dtype "bfloat16",
-    `--train_dtype bfloat16` (train_conditional_bf16)."""
-    import dataclasses
-
-    from sgam_neurips22_tpu_torch.serving import flagship_config
-    from sgam_neurips22_tpu_torch.training.losses import LossConfig
-    from sgam_neurips22_tpu_torch.training.train_step import TrainConfig
-
-    model = flagship_config(compute_dtype=dtype)
-    model = dataclasses.replace(model, ddconfig=dataclasses.replace(model.ddconfig, remat=True, flash_attention=True))
-    return TrainConfig(model=model, loss=LossConfig(disc_start=0), learning_rate=TRAIN_LR)
-
-
-def train_batch(torch, np, bs: int, device, seed: int = 2) -> dict:
-    """bench.py's conditional batch (n_src 2, 256^2), from numpy seed `seed`."""
-    rng = np.random.default_rng(seed)
-    n, h, w = 2, H, W
-    k = np.array([[355.5555, 0, 128.0], [0, 355.5555, 128.0], [0, 0, 1.0]], np.float32)
-    arrays = {
-        "dst_img": rng.uniform(-1, 1, (bs, h, w, 3)), "dst_depth": rng.uniform(8, 14, (bs, h, w)),
-        "src_imgs": rng.uniform(-1, 1, (bs, n, h, w, 3)), "src_depths": rng.uniform(8, 14, (bs, n, h, w)),
-        "Ks": np.broadcast_to(k, (bs, n, 3, 3)), "R_rels": np.broadcast_to(np.eye(3), (bs, n, 3, 3)),
-        "t_rels": np.zeros((bs, n, 3)), "src_masks": np.ones((bs, n)),
-    }
-    return {key: torch.tensor(np.asarray(v, np.float32), device=device) for key, v in arrays.items()}
 
 
 def train_components(torch, state, lpips, batch, cfg) -> dict:
@@ -1353,167 +1102,7 @@ def parity_train(torch, np, failures, bs: int = 2) -> dict:
     return res
 
 
-def grad_distances(torch, grads, ref, skip=()) -> dict:
-    """Per tensor (skipping `skip`): (the L2 norm of grads - ref over that
-    of ref, the L2 norm of grads over that of ref)."""
-    return {n: (float((grads[n] - ref[n]).norm() / ref[n].norm()), float(grads[n].norm() / ref[n].norm()))
-            for n in ref if n not in skip}
-
-
-def zeroed_dv(attention):
-    """A planted fault: attention.flash_attention_bwd with dV zeroed."""
-    bwd = attention.flash_attention_bwd
-
-    def faulty(*args):
-        dq, dk, dv = bwd(*args)
-        return dq, dk, dv.new_zeros(dv.shape)
-
-    return faulty
-
-
-def parity_train_bf16(torch, np, failures, bs: int = 2, seed: int = SEED, batch_seed: int = 2) -> dict:
-    """One training step at batch `bs` with the model in bf16, on the card
-    and on the CPU, each held to the same step in f32 on the CPU, at inputs
-    where bf16 rounding moves no latent to another codeword: rows 0..P-1 of
-    the codebook are the batch's f32 latents (P = bs * 16 * 16), so each
-    latent is its own nearest codeword at distance 0, and bf16 moves it by
-    about 1% of its length while the nearest other latent lies tens of
-    percent of it away. (On the init codebook bf16 flips 5-7% of the
-    codewords, which moves a gradient by tens of percent of its tensor's
-    largest, as much as a dropped gradient.) Model weights from `seed`,
-    the batch from numpy seed `batch_seed`.
-
-    Runs: f32 on the CPU (the reference), bf16 on the CPU and on the card,
-    and a control, the card's bf16 step with dV of every flash-attention
-    backward zeroed, which has to fail the gradient gate. bf16 rounding
-    alone moves this step's gradients by about half their L2 norm (the
-    median over the tensors 0.45-0.49 on the card and on the CPU, seeds
-    0-2, studies/bf16_train_parity.py; 0.22 at the tests' TINY size, in
-    JAX's own bf16 step as in the port's): at random weights each gradient
-    is a small residual of cancelling terms. So no gate can hold a tensor
-    near f32, and the gates are these:
-    - codeword indices before the step: 0..P-1 in every run;
-    - logs, each bf16 run against the f32 step: within 2^-6 |f32| + 1e-3;
-      d_weight, a ratio of two gradient norms, within 0.15 |f32| (measured
-      0.007-0.053 on the CPU, 0.033-0.094 on the card), and aeloss and
-      total_loss, which hold d_weight * g_loss, within 0.15 |d_weight *
-      g_loss| more;
-    - gradients, per trainable tensor: its L2 norm within (0.5, 2) times
-      the f32 step's in both bf16 runs (rounding noise adds to a norm, a
-      dropped gradient reads 0 and a doubled one 2); against the f32 step,
-      the card's worst L2 distance over the f32 norm within 2 times the
-      CPU's worst, and its median over the tensors within 1.5 times the
-      CPU's. Tensors whose f32 gradient is below 1e-5 of the step's largest
-      (the key biases, which the softmax cancels) are held below 1e-3 of
-      the step's largest instead."""
-    from sgam_neurips22_tpu_torch.models.vqgan.quantize import nearest_codeword_indices
-    from sgam_neurips22_tpu_torch.ops import attention
-    from sgam_neurips22_tpu_torch.training.lpips import random_lpips
-    from sgam_neurips22_tpu_torch.training.train_step import (
-        create_train_state,
-        model_inputs,
-        split_params,
-        train_step,
-    )
-
-    cfg32, cfg16 = train_config(torch, bs), train_config(torch, bs, "bfloat16")
-    batch = train_batch(torch, np, bs, "cpu", batch_seed)
-    with torch.no_grad():
-        x, _, mask = model_inputs(batch, cfg32)
-        latents = create_train_state(cfg32, seed=seed, device="cpu").model.encode_prequant(x, mask)
-        latents = latents.reshape(-1, latents.shape[-1])
-    p = latents.shape[0]
-    kernel_bwd, runs = attention.flash_attention_bwd, {}
-    for run, cfg, dev in (("f32", cfg32, "cpu"), ("cpu", cfg16, "cpu"), ("cuda", cfg16, "cuda"),
-                          ("control", cfg16, "cuda")):
-        if run == "control":
-            attention.flash_attention_bwd = zeroed_dv(attention)
-        try:
-            t0 = time.perf_counter()
-            state = create_train_state(cfg, seed=seed, device=dev)
-            lpips = random_lpips(seed + 2).to(dev)
-            b = {k: v.to(dev) for k, v in batch.items()}
-            with torch.no_grad():
-                state.model.codebook[:p] = latents.to(dev)
-                xd, _, md = model_inputs(b, cfg)
-                pre = state.model.encode_prequant(xd, md)
-                idx = nearest_codeword_indices(pre.reshape(-1, pre.shape[-1]), state.model.codebook).cpu()
-            _, logs = train_step(state, b, lpips, cfg)
-            grads = {n: g.grad.detach().cpu().double() for n, g in split_params(state.model, cfg.phase)[0]}
-            runs[run] = ({k: float(v) for k, v in logs.items()}, idx, grads, time.perf_counter() - t0)
-            del state, lpips, b, pre
-        finally:
-            attention.flash_attention_bwd = kernel_bwd
-    f_logs, f_idx, f_grads, f_s = runs.pop("f32")
-    top = max(float(g.abs().max()) for g in f_grads.values())
-    noise = sorted(n for n, g in f_grads.items() if float(g.abs().max()) < 1e-5 * top)
-    own = np.arange(p)
-    res = {"batch": bs, "seed": seed, "batch_seed": batch_seed, "codebook_rows_from_latents": p,
-           "f32_seconds": f_s, "f32_logs": f_logs, "f32_index_is_own_row": bool((f_idx.numpy() == own).all()),
-           "grad_noise_tensors": noise}
-    tol = {k: 2**-6 * abs(v) + 1e-3 for k, v in f_logs.items()}
-    tol["train/d_weight"] = 0.15 * abs(f_logs["train/d_weight"])
-    for k in ("aeloss", "train/total_loss"):
-        tol[k] += 0.15 * abs(f_logs["train/d_weight"] * f_logs["train/g_loss"])
-    for run, (logs, idx, grads, secs) in runs.items():
-        dist = grad_distances(torch, grads, f_grads, noise)
-        err = {n: d[0] for n, d in dist.items()}
-        res[run] = {
-            "seconds": secs, "logs": logs, "index_is_own_row": float((idx.numpy() == own).mean()),
-            "log_err_vs_f32": {k: abs(logs[k] - f_logs[k]) for k in f_logs},
-            "logs_ok": all(abs(logs[k] - f_logs[k]) <= tol[k] for k in f_logs),
-            "grad_distances_vs_f32": dist,
-            "grad_worst_vs_f32": max(err.items(), key=lambda kv: kv[1]),
-            "grad_median_vs_f32": float(np.median(list(err.values()))),
-            "grad_norm_ratio_range": [min(d[1] for d in dist.values()), max(d[1] for d in dist.values())],
-            "grad_norm_off": sorted(n for n, d in dist.items() if not 0.5 < d[1] < 2.0),
-            "grad_noise_max": max((float(grads[n].abs().max()) / top for n in noise), default=0.0),
-        }
-    c = res["cpu"]
-    for run in ("cpu", "cuda", "control"):
-        g = res[run]
-        g["grads_ok"] = (not g["grad_norm_off"] and g["grad_noise_max"] <= 1e-3
-                         and g["grad_worst_vs_f32"][1] <= 2.0 * c["grad_worst_vs_f32"][1]
-                         and g["grad_median_vs_f32"] <= 1.5 * c["grad_median_vs_f32"])
-        g["ok"] = res["f32_index_is_own_row"] and g["index_is_own_row"] == 1.0 and g["logs_ok"] and g["grads_ok"]
-    res["control_fails"] = not res["control"]["grads_ok"]
-    res["ok"] = res["cpu"]["ok"] and res["cuda"]["ok"] and res["control_fails"]
-    for run in ("cpu", "cuda", "control"):  # the per-tensor table goes to --out only
-        res[f"{run}_grad_distances_vs_f32"] = res[run].pop("grad_distances_vs_f32")
-    if not res["ok"]:
-        failures.append(f"bf16 training step GPU vs CPU: { {k: v for k, v in res.items() if 'distances' not in k} }")
-    return res
-
-
-MAP_GRID = (3, 3)  # bench.py --config integration: 8 frames on a 3x3 grid
-MAP_BATCH_GRID = (5, 5)  # bench.py batched_8_scenes_tsdf (--frames 48 on a 7x7 grid), cut to 24 frames for time
-MAP_STRIDE2_GRID = (2, 2)  # integration_clevr_stride2, cut from 3x3 (8 frames) to 3 frames for time
-GE_MAP_FRAMES = 12  # google_earth's two map phases: a (GE_MAP_FRAMES + 1) x 1 trajectory, cut from 100 for time
 MAP_PARITY_FRAMES = 3  # generated frames that map_parity fuses after the seed
-
-
-def map_config(dataset: str, grid, coherent: bool = False, stride: int = 1):
-    """bench.py's map-requery configuration of `dataset` on `grid`: its
-    auto-sized volume and defaults (splat re-query), 256^2, topk 1, every
-    `stride`-th ray fused (--tsdf_stride)."""
-    from sgam_neurips22_tpu_torch.pipeline.scene_generation import SceneGenConfig
-
-    return SceneGenConfig(dataset=dataset, output_dim=grid, topk=1, image_resolution=(H, W),
-                          use_rgbd_integration=True, coherent_plane_depth=coherent, tsdf_integrate_stride=stride)
-
-
-def pool_telemetry(np, gen) -> dict:
-    """The map's telemetry as bench.py prints it (live and lifetime pool
-    slots, dropped, recycled), the fused share of valid depth samples, and
-    the volume's layout."""
-    cfg = gen.tsdf_cfg
-    counts = gen.volume.cell_counts.cpu().numpy()
-    frac, n_valid, dropped, recycled = gen.fusion_stats()
-    return {"pool_live_slots": int(np.minimum(counts, cfg.cell_cap).sum()), "pool_lifetime_slots": int(counts.sum()),
-            "pool_dropped": int(dropped), "pool_recycled": int(recycled), "fusion_fraction": frac,
-            "valid_samples": n_valid, "volume": {"dims": list(cfg.dims), "voxel_size": cfg.voxel_size,
-                                                 "band": cfg.band, "pool_cells": cfg.n_cells,
-                                                 "cell_cap": cfg.cell_cap, "chunk": cfg.chunk}}
 
 
 def capture_pool_splat(torch, gen, run=None):
@@ -1542,17 +1131,6 @@ def capture_pool_splat(torch, gen, run=None):
     return keep["pix"], keep["key"]
 
 
-def last_step(torch, gen) -> dict:
-    """Device inputs of the trajectory's last step (its target pose, its
-    sources and their transforms) and that frame's depth, for timing the
-    map's functions at the phase's shapes."""
-    src, _, _, _, t2s, w2c = gen._step_inputs_host(gen.order[-1], len(gen.order) - 1)
-    tgt = gen.grid.index(*gen.order[-1])
-    dev = gen.device
-    return {"src": torch.as_tensor(src, device=dev), "t2s": torch.as_tensor(t2s, device=dev),
-            "w2c": torch.as_tensor(w2c, device=dev), "depth": gen.depth_buf[tgt]}
-
-
 def map_times(torch, gen) -> dict:
     """Time per call of the map's functions at the phase's shapes, on a copy
     of the volume at the phase's end: render_depth (the splat, and its
@@ -1579,121 +1157,6 @@ def map_times(torch, gen) -> dict:
         out[f"{name}_ms"] = cuda_ms(torch, fn, 20, 2)
         out[f"{name}_device_ms"] = device_ms(torch, fn, 20, 2)
     return out
-
-
-def capture_grid_inputs(torch, gen) -> dict:
-    """The grid accumulation's inputs as integrate builds them at the
-    phase's last step (one more integrate into a copy of the volume): the
-    grid before, the int32 voxel ids and the f32 values."""
-    from sgam_neurips22_tpu_torch.mapping import tsdf
-
-    vol, st, keep, orig = gen.volume.to(gen.device), last_step(torch, gen), {}, tsdf.grid_accumulate
-
-    def spy(grid, idx, vals):
-        keep.update(grid=grid.clone(), idx=idx.clone(), vals=vals.clone())
-        return orig(grid, idx, vals)
-
-    tsdf.grid_accumulate = spy
-    try:
-        tsdf.integrate(vol, gen.tsdf_cfg, st["depth"], None, gen.ks[0], st["w2c"])
-    finally:
-        tsdf.grid_accumulate = orig
-    torch.cuda.synchronize()
-    return keep
-
-
-def capture_grid_inputs_batched(torch, gen, depth) -> dict:
-    """capture_grid_inputs for the batched map: one more integrate of the
-    plan's last step, every scene's frame at once (depth [S, G, H, W] from
-    scene_expansion_batched), into a copy of `batched_volume`."""
-    from sgam_neurips22_tpu_torch.mapping import tsdf
-
-    plan = gen.build_plan()
-    t = len(plan["tgt"]) - 1
-    vol, keep, orig = gen.batched_volume.to(gen.device), {}, tsdf.grid_accumulate
-
-    def spy(grid, idx, vals):
-        keep.update(grid=grid.clone(), idx=idx.clone(), vals=vals.clone())
-        return orig(grid, idx, vals)
-
-    tsdf.grid_accumulate = spy
-    try:
-        tsdf.integrate(vol, gen.tsdf_cfg, depth[:, plan["tgt"][t]], None, gen.ks[0], plan["tgt_w2c"][t])
-    finally:
-        tsdf.grid_accumulate = orig
-    torch.cuda.synchronize()
-    return keep
-
-
-def grid_input_stats(torch, grid, idx, vals) -> dict:
-    """What shapes the grid accumulation's work: the samples, the key bits
-    the grid's size needs, the touched voxels, the zero addends (integrate's
-    masked samples add 0.0 at voxel 0), voxel 0's run and the longest run
-    of any other voxel."""
-    keys, counts = torch.unique(idx, return_counts=True)
-    other = counts[keys != 0]
-    return {"samples": idx.numel(), "voxels": grid.numel(), "key_bits": max(1, (grid.numel() - 1).bit_length()),
-            "touched_voxels": int(keys.numel()), "zero_addends": int((vals == 0).sum()),
-            "zero_addends_at_key_0": int(((vals == 0) & (idx == 0)).sum()), "key_0_run": int((idx == 0).sum()),
-            "longest_other_run": int(other.max()) if other.numel() else 0}
-
-
-def kernel_split(torch, fn, sessions: int = 8, warmup: int = 3) -> dict:
-    """The kernels (and device memsets) one fn() call runs, in launch
-    order, with their device us: one profiler session a call (between
-    primers), `sessions` of them, averaged over the sessions whose sequence
-    of names is the longest, and of those the most common (a trace that
-    misses events shortens its sequence). {"kernels": [(name, us)],
-    "sessions": kept / run, "lengths": the sequences' lengths seen};
-    kernels is None where no session traced any device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    seqs = []
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            profiler_primer(torch)
-            fn()
-            profiler_primer(torch)
-            torch.cuda.synchronize()
-        seqs.append(tuple((name, ns) for _, name, ns in sorted(
-            (ev.start_ns(), ev.name(), ev.duration_ns()) for ev in prof.profiler.kineto_results.events()
-            if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0 and not ev.is_user_annotation()
-            and PRIMER_KERNEL not in ev.name())))
-    names = [tuple(n for n, _ in q) for q in seqs if q]
-    if not names:
-        return {"kernels": None, "sessions": f"0/{sessions}", "lengths": []}
-    common = max(set(names), key=lambda n: (len(n), names.count(n)))  # a missed event only shortens one
-    kept = [q for q in seqs if tuple(n for n, _ in q) == common]
-    return {"kernels": [(short_name(common[j]), sum(q[j][1] for q in kept) / len(kept) / 1e3)
-                        for j in range(len(common))],
-            "sessions": f"{len(kept)}/{sessions}", "lengths": sorted({len(n) for n in names})}
-
-
-def short_name(name: str) -> str:
-    """A kernel's name without its return type, anonymous namespace,
-    template arguments and parameters."""
-    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
-    return re.split(r"[<(]", name, maxsplit=1)[0].strip() or name
-
-
-def grid_accumulate_sorted(torch, grid, idx, vals) -> None:
-    """The grid accumulation's first CUDA route, timed beside the
-    op as old_ms: torch.sort of the keys, a gather of the values, then
-    csrc/grid_accumulate.cu's grid_accumulate_sorted_launch, one thread
-    walking each key's run."""
-    from sgam_neurips22_tpu_torch.ops import cuda_build
-    from sgam_neurips22_tpu_torch.ops import grid_accumulate as acc
-
-    keys, order = torch.sort(idx, stable=True)
-    ordered = vals[order]
-    lib = cuda_build.library("grid_accumulate", acc._SIGNATURES)
-    rc = lib.grid_accumulate_sorted_launch(keys.data_ptr(), ordered.data_ptr(), grid.data_ptr(), keys.numel(),
-                                           torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(rc, "grid_accumulate_sorted")
 
 
 def check_grid_accumulate(torch, cases: dict, failures) -> dict:
@@ -1727,7 +1190,8 @@ def check_grid_accumulate(torch, cases: dict, failures) -> dict:
         atomics = grid_accumulate_plain(grid.clone(), idx, vals)
         torch.cuda.synchronize()
         stats = grid_input_stats(torch, grid, idx, vals)
-        b_ms, b_by = bound(8 * idx.numel() + 8 * stats["touched_voxels"], idx.numel())
+        b_ms, b_by, _ = hand_bound("grid_accumulate", [[grid.numel()], [idx.numel()], [idx.numel()]],
+                                   touched=stats["touched_voxels"])
         work, lib_idx = grid.clone(), idx.long()
 
         def new():
@@ -1940,7 +1404,7 @@ def check_zbuffer_map(torch, cases: dict, failures) -> list:
         torch.cuda.synchronize()
         exact = {r: torch.equal(o, ref) for r, o in outs.items()}
         base, idx = torch.full((b, H * W), IMAX, dtype=torch.int32, device=pix.device), pix.long()
-        b_ms, b_by = bound(2 * 4 * b * p + 4 * b * H * W, 0)
+        b_ms, b_by, _ = hand_bound("zbuffer_min", [[b, p], [b, p]], ("", "", H, W))
         row = {
             "case": name, "shape": {"pix": [b, p], "pixels": H * W}, **zbuffer_plan(b, p, H, W)._asdict(),
             "ok": all(exact.values()), "bit_exact": exact["plan"], "routes_bit_exact": exact,
@@ -1959,32 +1423,6 @@ def check_zbuffer_map(torch, cases: dict, failures) -> list:
         if not row["ok"]:
             failures.append(f"zbuffer_min differs from zbuffer_min_plain at the map's shape {name}: {row}")
     return rows
-
-
-def volume_bytes(vol) -> int:
-    """Device bytes of a TSDF volume's state."""
-    import dataclasses
-
-    return sum(getattr(vol, f.name).numel() * getattr(vol, f.name).element_size() for f in dataclasses.fields(vol))
-
-
-def batched_pool_telemetry(np, gen) -> dict:
-    """The batched map's telemetry: each scene's live, lifetime and
-    recycled pool slots (recycled: the bookings past a cell's capacity,
-    each of which reused a slot), the batch's dropped and recycled slots and
-    fused share from the volume's stats (summed over scenes), and its bytes."""
-    from sgam_neurips22_tpu_torch.mapping.tsdf import fusion_fraction
-
-    cfg, vol = gen.tsdf_cfg, gen.batched_volume
-    counts = vol.cell_counts.cpu().numpy().reshape(-1, cfg.n_cells).astype(np.int64)
-    frac, n_valid, dropped, recycled = fusion_fraction(vol)
-    scenes = [{"pool_live_slots": int(np.minimum(c, cfg.cell_cap).sum()), "pool_lifetime_slots": int(c.sum()),
-               "pool_recycled": int(np.maximum(c - cfg.cell_cap, 0).sum())} for c in counts]
-    return {"scenes_pool": scenes, "pool_dropped": int(dropped), "pool_recycled": int(recycled),
-            "pool_recycled_matches_scenes": int(recycled) == sum(x["pool_recycled"] for x in scenes),
-            "fusion_fraction": frac, "valid_samples": n_valid, "volume_bytes": volume_bytes(vol),
-            "volume": {"dims": list(cfg.dims), "voxel_size": cfg.voxel_size, "band": cfg.band,
-                       "pool_cells": cfg.n_cells, "cell_cap": cfg.cell_cap, "chunk": cfg.chunk}}
 
 
 def map_parity_batched(torch, np, cpu_model, cpu_model16, seeds_batch, failures) -> dict:
@@ -2224,14 +1662,6 @@ def generate_phase(torch, np, cpu_model, counters, failures, model16=None, seeds
     return out
 
 
-def seed_frames(np, rng, depth_range=(8, 14)) -> list:
-    """One scene's seeds: a random frame at grid (0, 0), depths uniform in
-    depth_range (bench.py's: (8, 14) for clevr-infinite, (0.5, 4.0) for
-    google_earth)."""
-    return [((0, 0), rng.uniform(-1, 1, (H, W, 3)).astype(np.float32),
-             rng.uniform(*depth_range, (H, W)).astype(np.float32))]
-
-
 def timed_unroll(torch, unroll, counters, prepare=lambda: None) -> tuple:
     """One warm-up call of unroll(), then one timed call whose kernel
     launches are counted, each after an untimed prepare():
@@ -2331,7 +1761,7 @@ def precision_phase(torch, np, model, seeds, seeds_batch, counters, failures, ca
                                "rgb": (rgb[1] if scenes == 1 else rgb[:, 1]).cpu(),
                                "depth": (depth[1] if scenes == 1 else depth[:, 1]).cpu()}
                 conv = run.get("conv_kernels", [])
-                run["conv_ms_per_frame"] = run["ms_per_frame_by_layer"].get("conv (cuDNN: implicit GEMM, FFT)")
+                run["conv_ms_per_frame"] = (run["ms_per_frame_by_layer"] or {}).get("conv (cuDNN: implicit GEMM, FFT)")
                 run["tf32_conv_kernels"] = [k for k in conv if re.search("tf32", k, re.I)]
                 run["names_ok"] = (bool(run["tf32_conv_kernels"]) if mode == "default"
                                    else not any(re.search("tf32", k, re.I) for k in conv))
@@ -2632,29 +2062,6 @@ def generate_config_phase(torch, np, run_dir: str, counters, failures) -> dict:
 
 
 PARITY_TRAINER_RES = 64  # parity_trainer's images: the full-width model on a small input
-UPDATE_FLOOR = 1e-2  # the update gate's elements: CPU first moment at least this share of its tensor's largest
-
-
-def update_gap(torch, w0: dict, w1: dict, ref_w0: dict, ref_w1: dict, ref_m: dict, skip) -> dict:
-    """The applied Adam update (weights after minus before) of a run
-    against the reference run's, per tensor but those in `skip`, over the
-    elements whose reference first moment is at least UPDATE_FLOOR of the
-    tensor's largest (clear of f32 noise: the moments agree to 1e-4 of the
-    largest): the share whose update's sign differs, and the L2 distance
-    over the reference update's norm. Adam's first update moves a weight
-    by about LR times the sign of its mean gradient, so a wrong gradient
-    shows as flipped signs."""
-    flips, gaps = {}, {}
-    for n, m in ref_m.items():
-        if n in skip:
-            continue
-        sel = m.abs() >= UPDATE_FLOOR * m.abs().max()
-        d, ref = (w1[n] - w0[n])[sel], (ref_w1[n] - ref_w0[n])[sel]
-        flips[n] = float((torch.sign(d) != torch.sign(ref)).double().mean())
-        gaps[n] = float((d - ref).norm() / ref.norm())
-    worst = max(gaps, key=gaps.get)
-    return {"flip_share_max": max(flips.values()), "gap_worst": [worst, gaps[worst]],
-            "ok": max(flips.values()) <= 1e-3 and gaps[worst] <= 2e-2}
 
 
 def parity_trainer(torch, np, root: Path, failures) -> dict:
@@ -3003,6 +2410,17 @@ def dp_world1(torch, np, failures, card) -> dict:
     return rep
 
 
+PROFILE_KEYS = ("device_idle_share", "device_busy_ms", "device_kernel_ms", "lost_launches")
+
+
+def idle_in_unit(prof: dict) -> bool:
+    """A rank's idle share (1 - busy / its timed wall, busy the union of the
+    card's record intervals) lies in [0, 1], or its trace lost launches
+    (then it is not given, and not gated)."""
+    share = prof["device_idle_share"]
+    return bool(prof["lost_launches"]) or (share is not None and 0.0 <= share <= 1.0)
+
+
 def rel_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
@@ -3036,7 +2454,10 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
     random weights turn rounding into other frames); the bf16 map unroll
     (MAP_BATCH_GRID) with the stats summed over the ranks, whose recycled
     slots must equal the ranks' per-scene sum, against unroll_tsdf_batched's
-    stats (reported)."""
+    stats (reported). Each rank also times and profiles one more training
+    step and the f32 step of its 4 scenes (`data_parallel.profile_step`):
+    its idle share, 1 - busy (the union of the card's record intervals)
+    / the timed wall, must lie in [0, 1] unless its trace lost launches."""
     import tempfile
 
     from sgam_neurips22_tpu_torch.parallel import distributed
@@ -3052,7 +2473,7 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
     del gen
     torch.cuda.empty_cache()
     parent_s = time.perf_counter() - t0
-    cases = {"step_f32": ("float32", (2, 1), False, False, True),
+    cases = {"step_f32": ("float32", (2, 1), False, True, True),
              "step_f32_one_a_rank": ("float32", (2, 1), False, False, True, 2),
              "splat_bf16": ("bfloat16", (FRAMES + 1, 1), False, False, True),
              "map_bf16": ("bfloat16", MAP_BATCH_GRID, True, False, False)}
@@ -3077,10 +2498,11 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
               "bit_equal": {k: ranks[0]["checksums"][k] == ranks[1]["checksums"][k] for k in ranks[0]["checksums"]},
               "logs_equal_across_ranks": ranks[0]["runs"]["clean"]["logs"] == ranks[1]["runs"]["clean"]["logs"],
               "moved_from_init": ranks[0]["moved_from_init"], "parent_seconds": parent_s, "ranks_seconds": ranks_s,
-              "card": card}
+              "step_profile": [{k: r["step_profile"][k] for k in PROFILE_KEYS} for r in ranks], "card": card}
     dp_rep["ok"] = (clean["ok"] and not faults["local_batchnorm"]["ok"] and not faults["local_d_weight"]["ok"]
                     and all(dp_rep["bit_equal"].values())
-                    and dp_rep["logs_equal_across_ranks"] and dp_rep["refreshed_codewords"] == [dp.REFRESHED] * 2)
+                    and dp_rep["logs_equal_across_ranks"] and dp_rep["refreshed_codewords"] == [dp.REFRESHED] * 2
+                    and all(idle_in_unit(p) for p in dp_rep["step_profile"]))
     if not dp_rep["ok"]:
         failures.append(f"dp_two_ranks_one_card: {dp_rep}")
     sc = [r["scenes"] for r in ranks]
@@ -3112,11 +2534,13 @@ def dp_two_ranks_one_card(torch, np, failures, card, seeds_batch, cpu_model, kee
                            "stats_rel_diff_vs_unsharded": [abs(a - b) / max(abs(b), 1.0)
                                                           for a, b in zip(summed, unsharded["stats"])],
                            "seconds": [r["map_bf16"]["seconds"] for r in sc]},
-              "finite": all(r[c]["finite"] for r in sc for c in cases), "card": card}
+              "finite": all(r[c]["finite"] for r in sc for c in cases),
+              "step_f32_profile": [{k: r["step_f32"][k] for k in PROFILE_KEYS} for r in sc], "card": card}
     sc_rep["ok"] = (all(sc_rep[c][e] <= 1e-5 for c in ("step_f32", "step_f32_one_a_rank")
                         for e in ("rgb_rel_err", "depth_rel_err"))
                     and sc_rep["step_f32_one_a_rank"]["flash_fwd_launches_per_rank"] == [7, 7]
-                    and sc_rep["finite"] and summed[3] == per_scene and summed[0] > 0)
+                    and sc_rep["finite"] and summed[3] == per_scene and summed[0] > 0
+                    and all(idle_in_unit(p) for p in sc_rep["step_f32_profile"]))
     if not sc_rep["ok"]:
         failures.append(f"scenes_sharded: {sc_rep}")
     return dp_rep, sc_rep
@@ -3138,6 +2562,225 @@ def data_parallel_phases(torch, np, failures, card, paths: dict, report: dict, s
     report.update(dp_two_ranks_one_card=dp_rep, scenes_sharded=sc_rep)
     emit({"phase": "dp_two_ranks_one_card", **dp_rep})
     emit({"phase": "scenes_sharded", **sc_rep})
+
+
+# ---------------------------------------------------------------- trace tools
+# (the port's parse_trace and roofline on traces written by utils/profiling.trace)
+TRACE_MAP_GRID = (5, 1)  # trace_tools' map re-query: 4 frames of CLEVR at batch 1
+TRACE_SAME_CALL_ITERS = 10  # calls of a hand op in its own trace, and in device_ms, for the 5% gate
+TRACE_SAME_CALL_TOL = 0.05
+
+
+class HandCalls:
+    """A spy on torch.ops.sgam's six ops inside a `with` block: `calls`
+    holds the inputs of the first call of each (op, input shapes), cloned
+    before the op runs (grid_accumulate adds into its grid)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls, self.originals = torch, {}, {}
+
+    class Spy:
+        """Calls through to the op packet, keeping the first call's inputs
+        of each shape; its attributes (`.default`, ...) are the packet's."""
+
+        def __init__(self, owner, op, packet):
+            self.owner, self.op, self.packet = owner, op, packet
+
+        def __call__(self, *args):
+            torch = self.owner.torch
+            key = (self.op, tuple(tuple(a.shape) if torch.is_tensor(a) else () for a in args))
+            if key not in self.owner.calls:
+                self.owner.calls[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            return self.packet(*args)
+
+        def __getattr__(self, name):
+            return getattr(self.packet, name)
+
+    def __enter__(self):
+        for op in HAND_OPS:
+            name = op.split("::")[1]
+            packet = self.originals[name] = getattr(self.torch.ops.sgam, name)
+            setattr(self.torch.ops.sgam, name, self.Spy(self, op, packet))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self.originals.items():
+            setattr(self.torch.ops.sgam, name, orig)
+
+
+def hand_call_work(torch, op: str, args):
+    """roofline.hand_work of one call from its tensors' shapes and its
+    scalars."""
+    dims = [list(a.shape) if torch.is_tensor(a) else [] for a in args]
+    return hand_work(op, dims, ["" if torch.is_tensor(a) else str(a) for a in args])
+
+
+def read_trace(path: Path, frames=None) -> dict:
+    """The trace under `path` (written by utils/profiling.trace) through the
+    reader, parse_trace and roofline: what the two tools print (their
+    `report`, the top rows), the hand ops' kernels by the link to their op,
+    the largest shares of a bound, and the lost launches."""
+    import contextlib
+    import io
+
+    from sgam_neurips22_tpu_torch import parse_trace, roofline
+    from sgam_neurips22_tpu_torch.utils import trace_events as te
+
+    t0 = time.perf_counter()
+    trace = te.from_file(te.newest(str(path)))
+    read_s = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        parse_trace.report(trace, 8, frames)
+        roofline.report(trace, 8, frames)
+    table, unmodelled = roofline.rows(trace, 0)
+    hand = {op: {"records": 0, "links": {}, "kernels_elsewhere": 0} for op in HAND_OPS}
+    for r in trace.records:
+        label = te.group_of(r.name)
+        if label.startswith("ours: "):  # a hand kernel: is it under its op?
+            op = "sgam::" + label[len("ours: "):]
+            if op in {o.name for o in r.ops}:
+                hand[op]["records"] += 1
+                hand[op]["links"][r.link] = hand[op]["links"].get(r.link, 0) + 1
+            else:
+                hand[op]["kernels_elsewhere"] += 1
+    shares = sorted(((row.bound_s / row.time_s if row.time_s else float("inf")), row.op, [list(d) for d in row.dims])
+                    for row in table)
+    # a hand op is held at its whole bound, every other op at the L2 floor (roofline.Row.under)
+    over = [(row.op, [list(d) for d in row.dims], row.under) for row in table
+            if row.under == "UNDER FLOOR" or (row.op in HAND_OPS and row.under)]
+    busy = te.busy_us(trace, 0)
+    return {"rows": table, "read_seconds": read_s, "tools_seconds": time.perf_counter() - t0 - read_s,
+            "tools": buf.getvalue().splitlines(), "hand": hand,
+            "launches": trace.launches, "lost_launches": trace.lost, "records_without_launch": trace.orphans,
+            "kernel_ms": te.kernel_us(trace, 0) / 1e3, "busy_ms": None if busy is None else busy / 1e3,
+            "no_model_ms": sum(t for t, _ in unmodelled.values()) * 1e3, "modelled_rows": len(table),
+            "largest_shares": shares[-5:], "l2_rows": sum(row.under == "L2" for row in table), "over": over,
+            "card": trace.metadata.get("card"),
+            "matmul_precision": trace.metadata.get("matmul_precision")}
+
+
+def same_call(torch, op: str, args, root: Path) -> dict:
+    """One hand op's call TRACE_SAME_CALL_ITERS times in a trace of its own
+    (utils/profiling.trace, read by the roofline's rows) against device_ms
+    of the same call: the reader's time a call within TRACE_SAME_CALL_TOL,
+    where the trace lost no launch."""
+    from sgam_neurips22_tpu_torch.roofline import rows
+    from sgam_neurips22_tpu_torch.utils import profiling
+    from sgam_neurips22_tpu_torch.utils import trace_events as te
+
+    fn = getattr(torch.ops.sgam, op.split("::")[1])
+    run = [a.clone() if torch.is_tensor(a) else a for a in args]
+    for _ in range(3):
+        fn(*run)
+    torch.cuda.synchronize()
+    with profiling.trace(str(root)):
+        for _ in range(TRACE_SAME_CALL_ITERS):
+            fn(*run)
+    trace = te.from_file(te.newest(str(root)))
+    mine = [r for r in rows(trace, 0)[0] if r.op == op]
+    trace_ms = sum(r.time_s for r in mine) * 1e3 / TRACE_SAME_CALL_ITERS
+    dev_ms = device_ms(torch, lambda: fn(*run), iters=TRACE_SAME_CALL_ITERS, warmup=1)
+    out = {"op": op, "shapes": [list(a.shape) if torch.is_tensor(a) else a for a in args], "trace_ms": trace_ms,
+           "device_ms": dev_ms, "lost_launches": trace.lost, "calls_in_trace": sum(r.calls for r in mine)}
+    out["ratio"] = trace_ms / dev_ms if dev_ms else None
+    out["ok"] = bool(trace.lost or (out["ratio"] is not None and abs(out["ratio"] - 1) <= TRACE_SAME_CALL_TOL
+                                    and out["calls_in_trace"] == TRACE_SAME_CALL_ITERS))
+    return out
+
+
+def trace_tools_phase(torch, np, cpu_model16, seeds, failures, card) -> dict:
+    """The port's trace tools on the card (`utils/profiling.trace`,
+    `parse_trace`, `roofline`, over `utils/trace_events`): one bf16
+    training step at TRAIN_BATCH (the forward, dQ, dK/dV, zbuffer_min and
+    nearest_codeword) and 4 frames of bf16 CLEVR map re-query at batch 1
+    (grid_accumulate, zbuffer_min, nearest_codeword), each traced after an
+    untraced run whose hand-op inputs are kept (HandCalls). It fails unless
+    all six hand ops appear with their kernels under them, each hand row's
+    modelled work is roofline.hand_work at the kept inputs times its calls,
+    no hand row's time is under its bound and no other row's under its L2
+    floor (`roofline.Row.under`; the card's L2 holds at least the floor's
+    L2_BYTES), and (where no launch was lost) each
+    kept call's time in a trace of its own is within 5% of device_ms of
+    the same call (each op's first kept call). Lost launches are counted
+    and printed, never gated."""
+    import tempfile
+
+    from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration
+    from sgam_neurips22_tpu_torch.training.lpips import random_lpips
+    from sgam_neurips22_tpu_torch.training.train_step import create_train_state, train_step
+    from sgam_neurips22_tpu_torch.utils import profiling
+
+    rep, captured = {"card": card}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cfg = train_config(torch, TRAIN_BATCH, "bfloat16")
+        state = create_train_state(cfg, seed=SEED, device="cuda")
+        lpips = random_lpips(SEED + 2).cuda()
+        batch = train_batch(torch, np, TRAIN_BATCH, "cuda")
+        with HandCalls(torch) as spy:
+            train_step(state, batch, lpips, cfg)
+            torch.cuda.synchronize()
+        captured.update(spy.calls)
+        t0 = time.perf_counter()
+        with profiling.trace(str(root / "train")):
+            train_step(state, batch, lpips, cfg)
+        rep["train_trace_seconds"] = time.perf_counter() - t0
+        del state, lpips, batch
+        torch.cuda.empty_cache()
+        gen = InfiniteSceneGeneration(copy.deepcopy(cpu_model16), map_config("clevr-infinite", TRACE_MAP_GRID), seeds,
+                                      device="cuda")
+        with HandCalls(torch) as spy:
+            gen.reset()
+            gen.scene_expansion()
+            torch.cuda.synchronize()
+        captured.update(spy.calls)
+        t0 = time.perf_counter()
+        with profiling.trace(str(root / "map")):
+            gen.reset()
+            gen.scene_expansion()
+        rep["map_trace_seconds"] = time.perf_counter() - t0
+        del gen
+        torch.cuda.empty_cache()
+        traces = {"train": read_trace(root / "train"),
+                  "map": read_trace(root / "map", TRACE_MAP_GRID[0] * TRACE_MAP_GRID[1] - 1)}
+        work_ok, modelled = True, []
+        for name, tr in traces.items():
+            for row in tr["rows"]:
+                if row.op not in HAND_OPS:
+                    continue
+                args = captured.get((row.op, row.dims))
+                want = hand_call_work(torch, row.op, args) if args is not None else None
+                ok = want is not None and (row.work.flops, row.work.bytes) == (want.flops * row.calls,
+                                                                               want.bytes * row.calls)
+                work_ok &= ok
+                modelled.append({"trace": name, "op": row.op, "shapes": [list(d) for d in row.dims],
+                                 "calls": row.calls, "ms": row.time_s * 1e3, "bound_ms": row.bound_s * 1e3,
+                                 "bound_tc_ms": row.tc_bound_s * 1e3, "flops": row.work.flops,
+                                 "bytes": row.work.bytes, "work_equals_formula": ok})
+        rep["hand_rows"] = modelled
+        present = {m["op"] for m in modelled}
+        under = {op: sum(tr["hand"][op]["records"] for tr in traces.values()) for op in HAND_OPS}
+        elsewhere = {op: sum(tr["hand"][op]["kernels_elsewhere"] for tr in traces.values()) for op in HAND_OPS}
+        rep["hand_links"] = {op: [tr["hand"][op]["links"] for tr in traces.values()] for op in HAND_OPS}
+        rep["attributed"] = {op: under[op] > 0 and elsewhere[op] == 0 for op in HAND_OPS}
+        over = [(n, *x) for n, tr in traces.items() for x in tr["over"]]
+        rep["l2_cache_bytes"] = torch.cuda.get_device_properties(0).L2_cache_size
+        rep["traces"] = {n: {k: v for k, v in tr.items() if k not in ("rows", "hand")} for n, tr in traces.items()}
+        first = {}  # each hand op's first kept call
+        for (op, _), args in captured.items():
+            first.setdefault(op, args)
+        rep["same_call"] = [same_call(torch, op, args, root / f"same_{i}") for i, (op, args) in enumerate(first.items())]
+    lost = {n: tr["lost_launches"] for n, tr in traces.items()}
+    rep["lost_launches"] = {**lost, "same_call": sum(c["lost_launches"] for c in rep["same_call"])}
+    rep["ok"] = (present == set(HAND_OPS) and all(rep["attributed"].values()) and work_ok and not over
+                 and rep["l2_cache_bytes"] >= L2_BYTES and all(c["ok"] for c in rep["same_call"]))
+    if not rep["ok"]:
+        failures.append(f"trace_tools: ops present {sorted(present)}, attributed {rep['attributed']}, "
+                        f"work equals the formula {work_ok}, rows under their bound {over}, the card's L2 "
+                        f"{rep['l2_cache_bytes']} bytes (the floor's {L2_BYTES}), same-call "
+                        f"{[(c['op'], c['shapes'], c['ratio'], c['lost_launches']) for c in rep['same_call']]}")
+    return rep
 
 
 # ---------------------------------------------------------------- serving
@@ -3830,7 +3473,11 @@ def write_exr(np, path: Path, channels: dict, zip_lines: bool) -> None:
 
 EXR_CV2_CASES = (  # (file, compression, pixel type, rows, content): written by cv2 (OpenEXR inside), 256 wide
     ("piz_half", "PIZ", "HALF", 256, "smooth"), ("piz_float", "PIZ", "FLOAT", 200, "ramp"),
-    ("pxr24_half", "PXR24", "HALF", 200, "smooth"), ("pxr24_float", "PXR24", "FLOAT", 256, "smooth"))
+    ("pxr24_half", "PXR24", "HALF", 200, "smooth"), ("pxr24_float", "PXR24", "FLOAT", 256, "smooth"),
+    # B44 and B44A: 203 rows end with a chunk of 11 and a row of 4x4 blocks with 3; "flat" has whole blocks of
+    # one value (B44A's 3-byte blocks); "plinear" is the file cv2 wrote with each channel's pLinear flag set
+    ("b44_half", "B44", "HALF", 203, "smooth"), ("b44a_half", "B44A", "HALF", 256, "flat"),
+    ("b44_float", "B44", "FLOAT", 200, "smooth"), ("b44a_half_plinear", "B44A", "HALF", 203, "plinear"))
 
 
 def float24(np, a):
@@ -3864,9 +3511,24 @@ def exr_chunks(np, path: Path) -> list:
     return out
 
 
+def with_plinear(data: bytes) -> bytes:
+    """The EXR file `data` with every channel's pLinear flag set in its
+    header's channel list (name, then pixel type, pLinear, 3 reserved
+    bytes and the two samplings)."""
+    out = bytearray(data)
+    at = data.index(b"channels\0chlist\0") + len(b"channels\0chlist\0") + 4
+    while out[at]:
+        at = out.index(b"\0", at) + 1
+        out[at + 4] = 1
+        at += 16
+    return bytes(out)
+
+
 def cv2_exr_cases(np, root: Path, failures) -> dict:
     """EXR_CV2_CASES written by cv2.imwrite and read by the port
-    (`read_exr`, native and numpy PIZ decoders) against cv2.imread."""
+    (`read_exr`, native and numpy PIZ decoders) against cv2.imread. Every
+    chunk of a HALF file is stored compressed, and none of a B44 FLOAT
+    file (B44 keeps FLOAT raw, which does not shrink a chunk)."""
     os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
     import cv2
 
@@ -3883,12 +3545,16 @@ def cv2_exr_cases(np, root: Path, failures) -> dict:
             yy, xx = np.mgrid[0:rows, 0:EXR_SIDE]
             a = np.stack([0.5 + 0.4 * np.sin(yy / (5.0 + c) + c) * np.cos(xx / 7.0) for c in range(3)], axis=2)
             a = (a + rng.uniform(0, 0.01, a.shape)).astype(np.float32)
+            if content == "flat":
+                a[:64, :128], a[128:192, 64:256] = 0.75, 0.25
         path = root / f"{name}.exr"
         if not cv2.imwrite(str(path), a, [cv2.IMWRITE_EXR_TYPE, getattr(cv2, f"IMWRITE_EXR_TYPE_{ptype}"),
                                           cv2.IMWRITE_EXR_COMPRESSION,
                                           getattr(cv2, f"IMWRITE_EXR_COMPRESSION_{compression}")]):
             failures.append(f"convert_exr: cv2 could not write {name}")
             continue
+        if content == "plinear":
+            path.write_bytes(with_plinear(path.read_bytes()))
         theirs = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
         case = {"compression": compression, "pixel_type": ptype, "rows": rows, "bytes": path.stat().st_size}
         for native in (True, False):
@@ -3898,9 +3564,15 @@ def cv2_exr_cases(np, root: Path, failures) -> dict:
             ours = np.stack([planes[c].astype(np.float32) for c in "BGR"], axis=2)
             case["equal_cv2" if native else "numpy_equal_cv2"] = bool(
                 hdr.compression == compression and np.array_equal(ours.view(np.uint32), theirs.view(np.uint32)))
+        case["plinear_channels"] = sum(c.linear for c in hdr.channels)
         chunks = exr_chunks(np, path)
         case["chunks"], case["compressed_chunks"] = len(chunks), sum(size < raw for _, size, raw in chunks)
-        ok = case["equal_cv2"] and case["numpy_equal_cv2"] and case["compressed_chunks"] > 0
+        if compression.startswith("B44"):  # HALF chunks all shrink; B44 keeps FLOAT raw, so none shrinks
+            shrunk = case["compressed_chunks"] == (len(chunks) if ptype == "HALF" else 0)
+        else:
+            shrunk = case["compressed_chunks"] > 0
+        ok = (case["equal_cv2"] and case["numpy_equal_cv2"] and shrunk
+              and case["plinear_channels"] == 3 * (content == "plinear"))
         if ptype == "FLOAT" and compression == "PXR24":
             case["equal_float24"] = bool(np.array_equal(theirs.view(np.uint32), float24(np, a).view(np.uint32)))
             ok = ok and case["equal_float24"]
@@ -4076,6 +3748,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report["collision_modes"] = check_collision_modes(torch, np, gen, np.random.default_rng(SEED + 3), failures)
     emit({"phase": "collision_modes", "seconds": time.perf_counter() - t0, "cases": report["collision_modes"]})
+    # 2b. the port's trace tools on the card: a bf16 training step and 4
+    #     frames of bf16 map re-query traced by utils/profiling.trace, read
+    #     by parse_trace and roofline, gated (trace_tools_phase); early in
+    #     the process, where sessions lose fewest records (PERF.md §7)
+    t0 = time.perf_counter()
+    report["trace_tools"] = trace_tools_phase(torch, np, cpu_model16, seeds, failures, card)
+    report["trace_tools"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "trace_tools", **report["trace_tools"]})
+    torch.cuda.empty_cache()
+
     paths = {}  # launches of each path's timed run
 
     # 3. the flythrough, batch 1: one warm-up unroll, then one timed unroll

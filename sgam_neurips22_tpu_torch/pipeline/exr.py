@@ -2,10 +2,10 @@
 OpenCV, no Pillow): what `convert_exr` needs of Blender's renders.
 
 It reads scanline single-part files (the layout Blender writes, its
-multilayer files included) with NONE, RLE, ZIPS, ZIP, PIZ or PXR24
-compression, HALF, FLOAT and UINT channels, in increasing or decreasing
-line order. Every other layout raises a ValueError that names the file and
-what it lacks: B44, B44A, DWAA and DWAB compression, tiled, deep and
+multilayer files included) with NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44 or
+B44A compression, HALF, FLOAT and UINT channels, in increasing or
+decreasing line order. Every other layout raises a ValueError that names
+the file and what it lacks: DWAA and DWAB compression, tiled, deep and
 multipart files, and subsampled channels.
 
 The layout (OpenEXR's file-format document): a magic number and a version
@@ -26,6 +26,15 @@ values present, a 2D Haar wavelet and a Huffman code: the C++ decoder
 `csrc/exr_piz.cpp` describes the stream. PXR24 (16 lines a chunk) deflates
 byte planes of each row's differences: HALF and UINT exactly, FLOAT
 rounded to 24 bits by the writer, which the reader returns as written.
+B44 and B44A (32 lines a chunk; OpenEXR's ImfB44Compressor) store each
+channel in turn: FLOAT and UINT channels raw, all their rows at once; HALF
+channels in 4x4 blocks, row by row, the last row and column of blocks
+padded by the writer. A block is 14 bytes (its first value and 15 six-bit
+differences scaled by a shift, on an ordered form of the half's bits) or,
+where the third byte says a shift of 13 or more, 3 bytes: one value for the
+whole block, which B44A writes for flat blocks. A channel flagged pLinear
+was stored as exp(x / 8) and is turned back through 8 log(x)
+(`B44_LOG_TABLE`). B44 is lossy; the reader returns what the writer kept.
 """
 from __future__ import annotations
 
@@ -40,8 +49,8 @@ import numpy as np
 
 MAGIC = 20000630
 COMPRESSIONS = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A", "DWAA", "DWAB")
-SUPPORTED = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24")
-LINES = {"NONE": 1, "RLE": 1, "ZIPS": 1, "ZIP": 16, "PIZ": 32, "PXR24": 16}
+SUPPORTED = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A")
+LINES = {"NONE": 1, "RLE": 1, "ZIPS": 1, "ZIP": 16, "PIZ": 32, "PXR24": 16, "B44": 32, "B44A": 32}
 PIXEL_TYPES = {0: np.dtype("<u4"), 1: np.dtype("<f2"), 2: np.dtype("<f4")}  # UINT, HALF, FLOAT
 LINE_ORDERS = ("INCREASING_Y", "DECREASING_Y", "RANDOM_Y")
 TILED, DEEP, MULTIPART = 0x200, 0x800, 0x1000  # version flags
@@ -55,6 +64,7 @@ _piz_cdll: Optional[ctypes.CDLL] = None
 class Channel(NamedTuple):
     name: str
     dtype: np.dtype
+    linear: bool = False  # the header's pLinear flag (perceptually linear), which only B44(A) reads
 
 
 class Header(NamedTuple):
@@ -90,13 +100,13 @@ def _channels(raw: bytes, path: str) -> List[Channel]:
         name = buf.cstr()
         if not name:
             return out
-        ptype, _linear, xs, ys = struct.unpack("<iB3xii", buf.take(16))
+        ptype, linear, xs, ys = struct.unpack("<iB3xii", buf.take(16))
         if ptype not in PIXEL_TYPES:
             raise ValueError(f"{path}: channel {name!r} has pixel type {ptype}, not UINT, HALF or FLOAT")
         if (xs, ys) != (1, 1):
             raise ValueError(f"{path}: channel {name!r} is subsampled ({xs}, {ys}); "
                              "the reader handles full-resolution channels only")
-        out.append(Channel(name, PIXEL_TYPES[ptype]))
+        out.append(Channel(name, PIXEL_TYPES[ptype], bool(linear)))
 
 
 def read_header(buf: _Bytes) -> Header:
@@ -362,6 +372,88 @@ def _pxr24(data: bytes, channels: List[Channel], w: int, n: int, path: str) -> b
     return np.concatenate(rows, axis=1).tobytes()
 
 
+def _b44_log_table() -> np.ndarray:
+    """OpenEXR's logTable (b44ExpLogTable): for every half bit pattern h,
+    the half of 8 log(h) taken in float (as logf, correctly rounded), or 0
+    where h is not finite or is below zero."""
+    f = np.arange(1 << 16, dtype=np.uint16).view(np.float16).astype(np.float32)
+    keep = np.isfinite(f) & ~(f < 0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        log = np.log(f.astype(np.float64)).astype(np.float32) * np.float32(8)
+    return np.where(keep, log, np.float32(0)).astype(np.float16).view(np.uint16)
+
+
+B44_LOG_TABLE = _b44_log_table()
+_B44_FLAT = 13 << 2  # a third byte at least this marks a 3-byte block
+
+
+def _b44_unpack14(b: np.ndarray) -> np.ndarray:
+    """[m, 14] bytes -> [m, 16] ordered 16-bit values (ImfB44Compressor's
+    unpack14): the first value, then 15 six-bit differences, each times
+    2^shift less 32 * 2^shift, down each column and along the first row."""
+    b = b.astype(np.int64)
+    shift = b[:, 2] >> 2
+    bias = 0x20 << shift
+
+    def d(x):
+        return ((x & 0x3F) << shift) - bias
+
+    s = [None] * 16
+    s[0] = (b[:, 0] << 8) | b[:, 1]
+    s[4] = s[0] + d((b[:, 2] << 4) | (b[:, 3] >> 4))
+    s[8] = s[4] + d((b[:, 3] << 2) | (b[:, 4] >> 6))
+    s[12] = s[8] + d(b[:, 4])
+    for col, at in ((1, 5), (2, 8), (3, 11)):  # each column's top from the one before, then down
+        s[col] = s[col - 1] + d(b[:, at] >> 2)
+        s[col + 4] = s[col + 3] + d((b[:, at] << 4) | (b[:, at + 1] >> 4))
+        s[col + 8] = s[col + 7] + d((b[:, at + 1] << 2) | (b[:, at + 2] >> 6))
+        s[col + 12] = s[col + 11] + d(b[:, at + 2])
+    return np.stack(s, axis=1) & 0xFFFF
+
+
+def _b44_channel(data: bytes, pos: int, w: int, n: int, linear: bool, path: str) -> Tuple[np.ndarray, int]:
+    """One HALF channel's [n, w] bit patterns from the blocks at data[pos:]
+    and the position past them."""
+    nby, nbx = -(-n // 4), -(-w // 4)
+    starts, flat = np.empty(nby * nbx, np.int64), np.empty(nby * nbx, bool)
+    for i in range(nby * nbx):  # a block's size shows in its third byte
+        if pos + 3 > len(data):
+            raise ValueError(f"{path}: a B44 chunk is truncated")
+        starts[i], flat[i] = pos, data[pos + 2] >= _B44_FLAT
+        pos += 3 if flat[i] else 14
+    if pos > len(data):
+        raise ValueError(f"{path}: a B44 chunk is truncated")
+    raw = np.frombuffer(data, np.uint8)
+    s = np.empty((nby * nbx, 16), np.int64)
+    first = raw[starts[:, None] + np.arange(2)].astype(np.int64)
+    s[flat] = ((first[flat, 0] << 8) | first[flat, 1])[:, None]
+    s[~flat] = _b44_unpack14(raw[starts[~flat, None] + np.arange(14)])
+    s = np.where(s & 0x8000, s & 0x7FFF, ~s & 0xFFFF).astype(np.uint16)  # ordered form -> half bits
+    if linear:
+        s = B44_LOG_TABLE[s]
+    blocks = s.reshape(nby, nbx, 4, 4).transpose(0, 2, 1, 3).reshape(nby * 4, nbx * 4)
+    return blocks[:n, :w], pos
+
+
+def _b44(data: bytes, channels: List[Channel], w: int, n: int, path: str) -> bytes:
+    """B44 and B44A: each channel in turn, FLOAT and UINT raw, HALF in 4x4
+    blocks (the edge blocks padded)."""
+    pos, rows = 0, []
+    for ch in channels:
+        if ch.dtype.itemsize != 2:
+            size = n * w * ch.dtype.itemsize
+            if pos + size > len(data):
+                raise ValueError(f"{path}: a B44 chunk is truncated")
+            rows.append(np.frombuffer(data, np.uint8, size, pos).reshape(n, -1))
+            pos += size
+            continue
+        bits, pos = _b44_channel(data, pos, w, n, ch.linear, path)
+        rows.append(bits.astype("<u2").view(np.uint8).reshape(n, -1))
+    if pos != len(data):
+        raise ValueError(f"{path}: a B44 chunk holds {len(data) - pos} bytes past its blocks")
+    return np.concatenate(rows, axis=1).tobytes()
+
+
 def _decompress(data: bytes, hdr: Header, w: int, n: int, path: str, native: bool = True) -> bytes:
     """The raw scanline bytes of a chunk of n rows of w pixels."""
     size = n * w * sum(ch.dtype.itemsize for ch in hdr.channels)
@@ -372,6 +464,8 @@ def _decompress(data: bytes, hdr: Header, w: int, n: int, path: str, native: boo
         return _piz(data, hdr.channels, w, n, path, native)
     if compression == "PXR24":
         return _pxr24(data, hdr.channels, w, n, path)
+    if compression in ("B44", "B44A"):
+        return _b44(data, hdr.channels, w, n, path)
     if compression == "RLE":
         return _unpredict(_rle_decode(data, size, path))
     raw = zlib.decompress(data)

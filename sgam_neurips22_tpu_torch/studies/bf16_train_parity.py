@@ -3,7 +3,7 @@ chip_smoke.py's one.
 
     python3 -m sgam_neurips22_tpu_torch.studies.bf16_train_parity [--seeds 1 2 3] [--out DIR]
 
-From the repository root (it runs chip_smoke.parity_train_bf16). For each
+From the repository root (it runs `studies.cases.parity_train_bf16`, chip_smoke.py's phase). For each
 seed s: model weights from s and the batch from numpy seed s + 2; the
 conditional step at batch 2 in f32 on the CPU, in bf16 on the CPU and on
 the card, and on the card with dV zeroed (the planted fault), at a
@@ -31,18 +31,19 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    import chip_smoke as cs
     from sgam_neurips22_tpu_torch.core.device import resolve_device
     from sgam_neurips22_tpu_torch.ops import cuda_build
+    from sgam_neurips22_tpu_torch.studies.cases import parity_train_bf16
+    from sgam_neurips22_tpu_torch.utils.trace_events import card_line
 
     resolve_device("cuda")
-    print(cs.card_line(), flush=True)
+    print(card_line(), flush=True)
     cuda_build.build("zbuffer_min", "nearest_codeword", "flash_attention_fwd", "flash_attention_dq",
                      "flash_attention_dkv")
     rows, ok = [], True
     for seed in args.seeds:
         failures: list[str] = []
-        res = cs.parity_train_bf16(torch, np, failures, seed=seed, batch_seed=seed + 2)
+        res = parity_train_bf16(torch, np, failures, seed=seed, batch_seed=seed + 2)
         rows.append(res)
         ok = ok and res["ok"]
         line = {"seed": seed, "ok": res["ok"], "control_fails": res["control_fails"]}
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
         print(json.dumps(line), flush=True)
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
-        (args.out / "bf16_train_parity.json").write_text(json.dumps({"card": cs.card_line(), "seeds": rows}, indent=1))
+        (args.out / "bf16_train_parity.json").write_text(json.dumps({"card": card_line(), "seeds": rows}, indent=1))
     return 0 if ok else 1
 
 

@@ -41,11 +41,14 @@ import argparse
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+from sgam_neurips22_tpu_torch.studies import cases
+from sgam_neurips22_tpu_torch.utils import trace_events as te
+from sgam_neurips22_tpu_torch.utils.trace_events import card_line
 
 YAML = "configs/conditional_generation/clevr-infinite.yaml"
 SEED = 0
@@ -59,10 +62,6 @@ SCENES = 8
 CLI_STEPS = 2  # --max_steps of the train CLI phase: 3 steps, then one more after -r
 
 
-def card_line(index: int = 0) -> str:
-    out = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip()
 
 
 def train_cfg(bs: int, kmeans: bool = False, yaml: str = YAML):
@@ -84,7 +83,7 @@ def train_cfg(bs: int, kmeans: bool = False, yaml: str = YAML):
 
 
 def global_batch(bs: int, seed: int = 2, res: int = 256, mixed: bool = False) -> dict:
-    """chip_smoke.train_batch's conditional batch (n_src 2, res^2; 256^2 is
+    """cases.train_batch's conditional batch (n_src 2, res^2; 256^2 is
     chip_smoke's) as numpy arrays, the whole global batch: every rank draws
     it and keeps its rows. With `mixed`, the rows of the second half are of
     another kind: flat walls (each row's images one colour, its depths one
@@ -162,7 +161,7 @@ def hold_step(torch, rec: dict, ref: dict, grads: bool = False) -> dict:
     """A data-parallel step's record against a reference step's, at
     chip_smoke's parity_train gates: every log at rtol 1e-4 + atol 1e-6
     (d_weight at rtol 1e-3); the discriminator's running statistics at
-    rtol 1e-4, atol 1e-6; the applied update by chip_smoke.update_gap (the
+    rtol 1e-4, atol 1e-6; the applied update by cases.update_gap (the
     sign of the update agrees on all but 1e-3 of the elements whose
     reference first moment is at least 1e-2 of its tensor's largest, and
     its L2 distance is within 2e-2), as parity_trainer holds it: a tensor
@@ -171,8 +170,6 @@ def hold_step(torch, rec: dict, ref: dict, grads: bool = False) -> dict:
     turns into a whole step) is held only to stay below that floor; with
     `grads`, each other trainable gradient's max error within 3e-2 of the
     tensor's largest (the card against the CPU bound)."""
-    import chip_smoke
-
     logs, ref_logs = rec["logs"], ref["logs"]
     rtol = {k: 1e-3 if k.endswith("d_weight") else 1e-4 for k in ref_logs}
     log_err = {k: abs(logs[k] - ref_logs[k]) / max(abs(ref_logs[k]), 1e-30) for k in ref_logs}
@@ -184,7 +181,7 @@ def hold_step(torch, rec: dict, ref: dict, grads: bool = False) -> dict:
     noise = sorted(n for n, m in ref["m"].items() if float(m.abs().max()) < floor)
     noise_ok = all(float(rec["m"][n].abs().max()) < floor for n in noise)
     zero = {n: torch.zeros(()) for n in ref["update"]}
-    upd = chip_smoke.update_gap(torch, zero, rec["update"], zero, ref["update"], ref["m"], noise)
+    upd = cases.update_gap(torch, zero, rec["update"], zero, ref["update"], ref["m"], noise)
     out = {"log_rel_err": log_err, "logs_ok": logs_ok, "d_weight": [logs.get("train/d_weight"),
                                                                       ref_logs.get("train/d_weight")],
            "running_stats_max_abs_err": stats_err, "running_stats_ok": stats_ok, "update": upd,
@@ -201,15 +198,17 @@ def hold_step(torch, rec: dict, ref: dict, grads: bool = False) -> dict:
 
 
 def profile_step(torch, fn, wall_s: float) -> dict:
-    """chip_smoke.profile_unroll over one call of fn(): device ms by layer
-    (NCCL's kernels as "collectives (NCCL)"), busy ms and idle share."""
-    import chip_smoke
-
-    prof = chip_smoke.profile_unroll(torch, fn, 1, wall_s)
+    """`trace_events.profile_unroll` over one call of fn(): device ms by
+    layer (NCCL's kernels as "collectives (NCCL)", on a stream beside
+    compute), busy ms (the union of the card's record intervals, so that
+    overlapping streams count once) beside kernel ms (their sum), the idle
+    share against wall_s, and the launches the trace lost (with any, every
+    time and the idle share are None)."""
+    prof = te.profile_unroll(torch, fn, 1, wall_s)
     layers = prof["ms_per_frame_by_layer"]
-    return {"device_busy_ms": prof["device_busy_ms_per_frame"], "device_idle_share": prof["device_idle_share"],
-            "collective_ms": layers.get("collectives (NCCL)", 0.0) if prof["device_busy_ms_per_frame"] else None,
-            "ms_by_layer": layers}
+    return {"device_busy_ms": prof["device_busy_ms_per_frame"], "device_kernel_ms": prof["device_kernel_ms_per_frame"],
+            "device_idle_share": prof["device_idle_share"], "lost_launches": prof["lost_launches"],
+            "collective_ms": None if layers is None else layers.get("collectives (NCCL)", 0.0), "ms_by_layer": layers}
 
 
 def _launches(fns, steps: int) -> dict:
@@ -318,7 +317,8 @@ def rank_rehearsal(spec: dict) -> None:
     (`global_batch`, with spec["mixed"] its halves of two kinds); the first
     step's record (rank 0), a second step, a k-means refresh of REFRESHED
     codewords drawn from a generator of this rank's own seed, and the
-    checksum of every tensor; then the first step again under each planted
+    checksum of every tensor; on a card, one more step timed and one
+    profiled (`profile_step`: this rank's busy time and idle share); then the first step again under each planted
     fault; then, with spec["scenes"], the sharded unrolls (`sharded_scenes`)."""
     import numpy as np
     import torch
@@ -372,6 +372,13 @@ def rank_rehearsal(spec: dict) -> None:
             rec["moved_from_init"] = sorted({k.split(".")[0] for k, v in tensors.items()
                                              if k in init and not torch.equal(v, init[k])})
             rec["two_step_seconds"] = time.perf_counter() - t0
+            if mesh.device.type == "cuda":  # one more step timed, then one profiled: this rank's idle share
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                train_step(state, batch, lpips, cfg)
+                torch.cuda.synchronize()
+                rec["step_profile"] = profile_step(torch, lambda: train_step(state, batch, lpips, cfg),
+                                                   time.perf_counter() - t1)
     rec["runs"] = runs
     if spec.get("scenes"):
         rec["scenes"] = sharded_scenes(torch, np, spec["scenes"], mesh)
@@ -391,11 +398,9 @@ def flagship_model(dtype: str):
 
 
 def scene_gen(model, grid, seeds_batch, map_mode: bool):
-    import chip_smoke
-
     from sgam_neurips22_tpu_torch.pipeline.scene_generation import InfiniteSceneGeneration, SceneGenConfig
 
-    cfg = (chip_smoke.map_config("clevr-infinite", grid) if map_mode else
+    cfg = (cases.map_config("clevr-infinite", grid) if map_mode else
            SceneGenConfig(dataset="clevr-infinite", output_dim=grid, topk=1, image_resolution=(256, 256)))
     return InfiniteSceneGeneration(model, cfg, seeds_batch[0], device="cuda")
 
@@ -410,8 +415,6 @@ def sharded_scenes(torch, np, spec: dict, mesh) -> dict:
     share from a profile of one more call where profiled, and under map
     re-query this rank's per-scene telemetry and the stats summed over the
     ranks."""
-    import chip_smoke
-
     out = {}
     models = {}
     fns = counters()
@@ -436,11 +439,12 @@ def sharded_scenes(torch, np, spec: dict, mesh) -> dict:
                "launches": {fn.__name__: fn.launches for fn in fns},
                "finite": bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())}
         if map_mode:
-            tel = chip_smoke.batched_pool_telemetry(np, gen)
+            tel = cases.batched_pool_telemetry(np, gen)
             res.update(scenes_pool=tel["scenes_pool"], stats=gen.batched_volume.stats.cpu().tolist())
         if profiled:
             res.update(profile_step(torch, run, dt))
-            res["ms_by_layer"] = {k: v / frames for k, v in res["ms_by_layer"].items()}
+            if res["ms_by_layer"] is not None:
+                res["ms_by_layer"] = {k: v / frames for k, v in res["ms_by_layer"].items()}
         if mesh.rank == 0 and keep:
             res["rgb"], res["depth"] = rgb.cpu(), depth.cpu()
         out[name] = res
@@ -544,7 +548,6 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    import chip_smoke
     from sgam_neurips22_tpu_torch.ops import cuda_build
     from sgam_neurips22_tpu_torch.parallel import distributed
     from sgam_neurips22_tpu_torch.parallel.mesh import make_mesh
@@ -560,7 +563,7 @@ def main(argv=None) -> int:
     cuda_build.build(*KERNELS, "grid_accumulate")
     report["build_seconds"] = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
-    seeds_batch = [chip_smoke.seed_frames(np, rng) for _ in range(SCENES)]
+    seeds_batch = [cases.seed_frames(np, rng) for _ in range(SCENES)]
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         # the step on 1, 2 and 4 cards
@@ -573,7 +576,8 @@ def main(argv=None) -> int:
             rep = {"cards": n, "global_batch": GLOBAL_BATCH, "seconds": time.perf_counter() - t0,
                    "ranks": [{k: r[k] for k in ("device", "card", "local_batch", "ms_per_step", "images_per_s",
                                                 "peak_mem_gb", "collective_ms", "device_busy_ms",
-                                                "device_idle_share", "launches_per_step", "setup_seconds")}
+                                                "device_kernel_ms", "lost_launches", "device_idle_share",
+                                                "launches_per_step", "setup_seconds")}
                              for r in ranks],
                    "bit_equal_across_ranks": len({r["checksum"] for r in ranks}) == 1}
             rep["ms_per_step"] = max(r["ms_per_step"] for r in ranks)
@@ -599,20 +603,20 @@ def main(argv=None) -> int:
         if not all(k["ok"] for k in kern):
             failures.append(f"kernels on cuda:0..3: {kern}")
         _emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "ranks": kern})
-        cases = {"splat_bf16": ("bfloat16", (FRAMES + 1, 1), False, True, True),
-                 "map_bf16": ("bfloat16", MAP_GRID, True, True, True)}
-        one = sharded_scenes(torch, np, {"cases": cases, "seeds": seeds_batch}, make_mesh(device="cuda"))
+        scene_cases = {"splat_bf16": ("bfloat16", (FRAMES + 1, 1), False, True, True),
+                       "map_bf16": ("bfloat16", MAP_GRID, True, True, True)}
+        one = sharded_scenes(torch, np, {"cases": scene_cases, "seeds": seeds_batch}, make_mesh(device="cuda"))
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         d = tmp / "scenes"
         d.mkdir()
-        distributed.launch(rank_scenes, 4, args=({"cases": cases, "seeds": seeds_batch, "out": str(d)},))
+        distributed.launch(rank_scenes, 4, args=({"cases": scene_cases, "seeds": seeds_batch, "out": str(d)},))
         four = _load(d, "scenes", 4)
-        for name in cases:
+        for name in scene_cases:
             rep = {"one_card": {k: v for k, v in one[name].items() if k != "rgb"},
                    "four_cards": [{k: v for k, v in r[name].items() if k != "rgb"} for r in four]}
             rep["four_cards_aggregate_ms_per_frame"] = max(r[name]["aggregate_ms_per_frame"] for r in four)
-            rep["psnr_per_scene_db"] = [float(np.mean(chip_smoke.psnr(torch, a[1:], b[1:])))
+            rep["psnr_per_scene_db"] = [float(np.mean(cases.psnr(torch, a[1:], b[1:])))
                                         for a, b in zip(four[0][name]["rgb"], one[name]["rgb"])]
             if name.startswith("map"):
                 summed = np.sum([[s["pool_recycled"] for s in r[name]["scenes_pool"]] for r in four])

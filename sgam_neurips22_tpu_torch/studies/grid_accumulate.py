@@ -4,8 +4,8 @@ callers give it, and its routes against each other.
     python3 -m sgam_neurips22_tpu_torch.studies.grid_accumulate capture --out DIR
     python3 -m sgam_neurips22_tpu_torch.studies.grid_accumulate routes --inputs DIR --out DIR
 
-From the repository root, on a machine with a card (it imports
-chip_smoke's helpers).
+From the repository root, on a machine with a card (chip_smoke.py's cases
+and helpers come from `studies/cases` and `utils/trace_events`).
 
 - capture: runs the four map callers of chip_smoke (bf16, seeded random
   weights): CLEVR 3x3, google_earth 13x1, CLEVR stride 2 on 2x2 and the
@@ -40,6 +40,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from sgam_neurips22_tpu_torch.studies import cases as cs
+from sgam_neurips22_tpu_torch.utils import trace_events as te
 
 DIGIT_BITS = (8, 9, 10)  # the CUDA route's widest digit
 
@@ -92,13 +95,13 @@ def capture(cs, out: Path, card: str) -> None:
         grid, idx, vals = c["grid"], c["idx"], c["vals"]
         row = cs.grid_input_stats(torch, grid, idx, vals)
         work, lib_idx = grid.clone(), idx.long()
-        row["split"] = cs.kernel_split(torch, lambda: grid_accumulate(work, idx, vals))
-        row["ms"] = cs.device_ms(torch, lambda: grid_accumulate(work, idx, vals))
-        row["call_ms"] = cs.cuda_ms(torch, lambda: grid_accumulate(work, idx, vals))
-        row["old_split"] = cs.kernel_split(torch, lambda: cs.grid_accumulate_sorted(torch, work, idx, vals))
-        row["old_ms"] = cs.device_ms(torch, lambda: cs.grid_accumulate_sorted(torch, work, idx, vals))
-        row["index_add_ms"] = cs.device_ms(torch, lambda: grid_accumulate_plain(work, idx, vals))
-        row["index_put_ms"] = cs.device_ms(torch, lambda: work.index_put_((lib_idx,), vals, accumulate=True))
+        row["split"] = te.kernel_split(torch, lambda: grid_accumulate(work, idx, vals))
+        row["ms"] = te.device_ms(torch, lambda: grid_accumulate(work, idx, vals))
+        row["call_ms"] = te.cuda_ms(torch, lambda: grid_accumulate(work, idx, vals))
+        row["old_split"] = te.kernel_split(torch, lambda: cs.grid_accumulate_sorted(torch, work, idx, vals))
+        row["old_ms"] = te.device_ms(torch, lambda: cs.grid_accumulate_sorted(torch, work, idx, vals))
+        row["index_add_ms"] = te.device_ms(torch, lambda: grid_accumulate_plain(work, idx, vals))
+        row["index_put_ms"] = te.device_ms(torch, lambda: work.index_put_((lib_idx,), vals, accumulate=True))
         res[name] = row
         print(json.dumps({"case": name, "card": card, **row}), flush=True)
         keys = torch.unique(idx)
@@ -181,9 +184,9 @@ def routes(cs, inputs: Path, out: Path, card: str) -> int:
             work = grid0.clone()
             row["configs"][f"{mb} bits"] = {
                 "bit_exact": bits_equal(grid, ref), "passes": len(acc.digit_plan(grid0.numel(), mb)),
-                "ms": cs.device_ms(torch, lambda: acc.launch(work, idx, vals, mb)),
-                "call_ms": cs.cuda_ms(torch, lambda: acc.launch(work, idx, vals, mb)),
-                "split": cs.kernel_split(torch, lambda: acc.launch(work, idx, vals, mb))}
+                "ms": te.device_ms(torch, lambda: acc.launch(work, idx, vals, mb)),
+                "call_ms": te.cuda_ms(torch, lambda: acc.launch(work, idx, vals, mb)),
+                "split": te.kernel_split(torch, lambda: acc.launch(work, idx, vals, mb))}
             if not row["configs"][f"{mb} bits"]["bit_exact"]:
                 failures.append(f"{name} {mb} bits not bit-exact")
         work = grid0.clone()
@@ -192,10 +195,10 @@ def routes(cs, inputs: Path, out: Path, card: str) -> int:
         turns = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             fn = old if which == "old" else new
-            turns[which].append({"ms": cs.device_ms(torch, fn), "call_ms": cs.cuda_ms(torch, fn)})
+            turns[which].append({"ms": te.device_ms(torch, fn), "call_ms": te.cuda_ms(torch, fn)})
         row["turns"] = turns
-        row["split"] = cs.kernel_split(torch, new)
-        row["old_split"] = cs.kernel_split(torch, old)
+        row["split"] = te.kernel_split(torch, new)
+        row["old_split"] = te.kernel_split(torch, old)
         a, b = grid0.clone(), grid0.clone()
         acc.grid_accumulate(a, idx, vals)
         acc.grid_accumulate(b, idx, vals)
@@ -233,11 +236,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("grid_accumulate study: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path.cwd()))
-    import chip_smoke as cs
 
     args.out.mkdir(parents=True, exist_ok=True)
-    card = cs.card_line()
+    card = te.card_line()
     if args.phase == "capture":
         capture(cs, args.out, card)
         return 0

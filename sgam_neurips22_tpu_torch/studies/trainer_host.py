@@ -130,7 +130,7 @@ def fit_timing(trainer, counters, steps: int = 5, profile: Optional[Callable] = 
     of threads (main, the loader's decode pool and its producer), the
     device's time from each step's start to the next (CUDA events), and
     the launches a step. `profile(fn, timed_s)`, where given, profiles one
-    more train_step (chip_smoke's profile_unroll) for the device's busy
+    more train_step (`utils.trace_events.profile_unroll`) for the device's busy
     time and idle shares."""
     from sgam_neurips22_tpu_torch.training import trainer as trainer_mod
     from sgam_neurips22_tpu_torch.training.train_step import train_step
@@ -224,7 +224,8 @@ def fit_timing(trainer, counters, steps: int = 5, profile: Optional[Callable] = 
     if profile is not None:
         prof = profile(lambda: train_step(trainer.state, batches[0], trainer.lpips, trainer.train_cfg), alone_s / steps)
         busy = prof["device_busy_ms_per_frame"]
-        rep.update({"device_busy_ms_per_step": busy,
+        rep.update({"device_busy_ms_per_step": busy, "device_kernel_ms_per_step": prof["device_kernel_ms_per_frame"],
+                    "profile_lost_launches": prof["lost_launches"],
                     "device_idle_share_fit": None if busy is None else 1 - busy / rep["fit_ms_per_step"],
                     "device_idle_share_train_step": None if busy is None else 1 - busy / rep["train_step_ms_per_step"],
                     "profiled_step_wall_ms": prof["profiled_wall_s"] * 1e3,

@@ -11,9 +11,11 @@ makes the flagship f32 model with seeded random weights, and unrolls the
 (24+1) x 1 clevr-infinite flythrough from one seeded frame, as
 chip_smoke.py's unroll phase does: one warm-up unroll, then REPEATS timed
 unrolls (host clock, synchronized, each after an untimed reset), then one
-profiled unroll for the device's busy time (CUDA activity only). Prints one
-JSON line a run (ms per frame of each timed unroll, device busy ms per
-frame, idle share) and a last line with each tree's median; --out DIR also
+profiled unroll for the device's busy time (CUDA activity only): the union
+of the card's record intervals, read for both trees by this checkout's
+`utils/trace_events`, and none where the trace lost a launch. Prints one
+JSON line a run (ms per frame of each timed unroll, device busy and kernel
+ms per frame, lost launches, idle share) and a last line with each tree's median; --out DIR also
 writes DIR/unroll_host_time.json.
 """
 from __future__ import annotations
@@ -33,9 +35,10 @@ def child(repeats: int) -> dict:
     """One run, in the tree the process imports the package from."""
     import time
 
+    import importlib.util
+
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sgam_neurips22_tpu_torch.core.device import resolve_device
@@ -69,10 +72,18 @@ def child(repeats: int) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         gen.scene_expansion()
         torch.cuda.synchronize()
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / FRAMES
+    # this file's own trace reader, whichever tree the process imports the package from
+    spec = importlib.util.spec_from_file_location(
+        "trace_events", Path(__file__).resolve().parents[1] / "utils" / "trace_events.py")
+    te = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(te)
+    trace = te.from_profile(prof)
+    busy = te.busy_us(trace)  # the union of the card's record intervals; None where a launch was lost
+    busy = None if busy is None else busy / 1e3 / FRAMES
     return {"ms_per_frame": times, "device_busy_ms_per_frame": busy,
-            "device_idle_share": 1.0 - busy / statistics.median(times)}
+            "device_kernel_ms_per_frame": None if busy is None else te.kernel_us(trace) / 1e3 / FRAMES,
+            "lost_launches": trace.lost,
+            "device_idle_share": None if busy is None else 1.0 - busy / statistics.median(times)}
 
 
 def main(argv=None) -> int:
@@ -103,7 +114,9 @@ def main(argv=None) -> int:
     summary = {"card": card, "frames": FRAMES, "median_ms_per_frame": {
         str(t): statistics.median(ms for r in runs if r["tree"] == str(t) for ms in r["ms_per_frame"]) for t in (a, b)},
         "median_device_busy_ms_per_frame": {
-        str(t): statistics.median(r["device_busy_ms_per_frame"] for r in runs if r["tree"] == str(t)) for t in (a, b)}}
+        str(t): statistics.median(r["device_busy_ms_per_frame"] for r in runs
+                                  if r["tree"] == str(t) and r["device_busy_ms_per_frame"] is not None)
+        for t in (a, b)}}
     print(json.dumps(summary), flush=True)
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)

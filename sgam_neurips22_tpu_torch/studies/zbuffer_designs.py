@@ -2,7 +2,7 @@
 
     python3 -m sgam_neurips22_tpu_torch.studies.zbuffer_designs [--out DIR]
 
-From the repository root (it takes its cases from chip_smoke.py). It builds
+From the repository root (chip_smoke.py's cases, from `studies/cases`). It builds
 `zbuffer_designs.cu` beside this file (the designs that were measured and
 rejected) and the shipped `csrc/zbuffer_min.cu`, checks every design
 bit-exact against `zbuffer_min_plain` at every case, and prints one JSON
@@ -24,7 +24,7 @@ INT32_MAX fill included wherever the design needs one):
   of C = 4, 8, 16 with about 128 blocks over the batch (`*_config`).
 
 Then the batch-1 unroll's own z-buffer inputs (24 flagship frames, seeded
-random weights) and each case's collision case (chip_smoke.collision_case),
+random weights) and each case's collision case (`cases.collision_case`),
 pr1 against shipped in turns. --out DIR writes all of it to
 DIR/zbuffer_designs.json.
 """
@@ -72,13 +72,14 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    import chip_smoke as cs
     from sgam_neurips22_tpu_torch.ops import cuda_build, zbuffer as zb
+    from sgam_neurips22_tpu_torch.studies import cases as cs
+    from sgam_neurips22_tpu_torch.utils import trace_events as te
 
     if not torch.cuda.is_available():
         print("zbuffer_designs: needs a GPU", file=sys.stderr)
         return 1
-    print(cs.card_line(), flush=True)
+    print(te.card_line(), flush=True)
     lib = build(cuda_build)
     shipped = cuda_build.library("zbuffer_min", zb._SIGNATURES)
 
@@ -134,8 +135,8 @@ def main(argv=None) -> int:
         return f
 
     def us(fn, match=None, iters=20):
-        ms = cs.device_ms(torch, fn, iters=iters, match=match)
-        if ms is None or cs.PROFILER_MISSES:
+        ms = te.device_ms(torch, fn, iters=iters, match=match)
+        if ms is None or te.PROFILER_MISSES:
             raise RuntimeError("torch.profiler recorded no device time: this study needs its trace")
         return ms * 1e3
 
@@ -160,7 +161,7 @@ def main(argv=None) -> int:
     gen = SimpleNamespace(grid=prepare_grid("clevr-infinite", (cs.FRAMES + 1, 1)), device="cuda")
     rng = np.random.default_rng(cs.SEED)
     scratch = torch.empty(1 << 12, dtype=torch.int32, device="cuda")
-    report = {"card": cs.card_line(), "cases": [], "collisions": []}
+    report = {"card": te.card_line(), "cases": [], "collisions": []}
     for name, (pix, key, h, w) in cs.zbuffer_cases(torch, np, gen, rng).items():
         b, p = pix.shape
         n = h * w
