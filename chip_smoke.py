@@ -158,7 +158,14 @@ the device's idle share):
   must be able to write them: each read by the port bit-equal to cv2.imread, PXR24 FLOAT
   also equal to OpenEXR's 24-bit rounding of the written array, a PIZ
   FLOAT file whose chunks reach the modular wavelet, and the seconds a
-  file of the native and the numpy PIZ decoders;
+  file of the native and the numpy PIZ decoders; then DWAA and DWAB files
+  (Y, BGR, BGRA, HALF and FLOAT, pLinear, 256 wide, rows ending in a
+  partial chunk and block, one at a level that leaves blocks DC-only)
+  written here by `write_dwa` (this cv2 writes DWA files without chunks,
+  which is probed and recorded), read by OpenEXR (cv2.imread, which must
+  read them) and by the port with both Huffman decoders, bit-equal, every
+  chunk compressed; and the seconds of `read_exr` on one 256^2 BGRA HALF
+  image as DWAA, ZIP and PIZ (recorded, not gated);
 - train: the conditional-generation GAN training step as `bench.py
   --config train_conditional` defines it (batch 16, n_src 2, n_embed
   16384, remat, flash attention, disc_start 0, Adam (0.5, 0.9), LPIPS with
@@ -3524,6 +3531,352 @@ def with_plinear(data: bytes) -> bytes:
     return bytes(out)
 
 
+# DWAA / DWAB files, 256 wide: (file, compression, channels, pixel type, rows, level, pLinear); the rows end in
+# a partial chunk (DWAA's 32 lines, DWAB's 256) and a partial row of 8x8 blocks; level 20000 leaves most blocks
+# DC-only, as a high dwaCompressionLevel does
+EXR_DWA_CASES = (
+    ("dwaa_y_half", "DWAA", "Y", "HALF", 203, 45, False),
+    ("dwaa_y_half_plinear", "DWAA", "Y", "HALF", 203, 45, True),
+    ("dwaa_bgr_half", "DWAA", "BGR", "HALF", 203, 45, False),
+    ("dwaa_bgra_half", "DWAA", "BGRA", "HALF", 203, 45, False),
+    ("dwaa_bgr_float", "DWAA", "BGR", "FLOAT", 200, 45, False), ("dwab_bgr_half", "DWAB", "BGR", "HALF", 300, 45, False),
+    ("dwab_bgra_half_high", "DWAB", "BGRA", "HALF", 300, 20000, False))
+DWA_ZIGZAG = (0, 1, 5, 6, 14, 15, 27, 28, 2, 4, 7, 13, 16, 26, 29, 42, 3, 8, 12, 17, 25, 30, 41, 43, 9, 11, 18, 24,
+              31, 40, 44, 53, 10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60, 21, 34, 37, 47, 50, 56,
+              59, 61, 35, 36, 48, 49, 57, 58, 62, 63)  # zig-zag index of [row * 8 + col]
+
+
+def huffman_stream(np, words) -> bytes:
+    """OpenEXR's Huffman coding of 16-bit words (ImfHuf's hufCompress):
+    code lengths of a Huffman code over the words and a run symbol one
+    past the largest, canonical codes (longer codes lower), the lengths
+    packed 6 bits each (59-62 and 63 + 8 bits for runs of zero lengths),
+    then the codes MSB first, a word repeated 2-255 times more sent once
+    with the run symbol and an 8-bit count where that is shorter."""
+    import heapq
+    import struct
+
+    values, counts = np.unique(np.asarray(words, np.int64), return_counts=True)
+    im, run = int(values[0]), int(values[-1]) + 1
+    freq = dict(zip(values.tolist(), counts.tolist())) | {run: 1}
+    heap = [(f, i, [sym]) for i, (sym, f) in enumerate(sorted(freq.items()))]
+    heapq.heapify(heap)
+    length, tie = dict.fromkeys(freq, 0), len(heap)
+    while len(heap) > 1:
+        f1, _, a = heapq.heappop(heap)
+        f2, _, b = heapq.heappop(heap)
+        for sym in a + b:
+            length[sym] += 1
+        heapq.heappush(heap, (f1 + f2, tie, a + b))
+        tie += 1
+    n_of = [0] * 60
+    for n in length.values():
+        n_of[n] += 1
+    start, c = [0] * 60, 0
+    for n in range(58, 0, -1):
+        start[n], c = c, (c + n_of[n]) >> 1
+    code = {}
+    for sym in sorted(length):
+        code[sym] = (start[length[sym]], length[sym])
+        start[length[sym]] += 1
+
+    class Bits:
+        def __init__(self):
+            self.acc, self.n, self.out = 0, 0, bytearray()
+
+        def put(self, v, n):
+            self.acc, self.n = (self.acc << n) | v, self.n + n
+            while self.n >= 8:
+                self.n -= 8
+                self.out.append((self.acc >> self.n) & 0xFF)
+            self.acc &= (1 << self.n) - 1
+
+        def bytes(self):
+            return bytes(self.out) + (bytes([(self.acc << (8 - self.n)) & 0xFF]) if self.n else b"")
+
+    table, sym = Bits(), im
+    while sym <= run:
+        if sym in length:
+            table.put(length[sym], 6)
+            sym += 1
+            continue
+        k = 1
+        while sym + k <= run and sym + k not in length and k < 261:
+            k += 1
+        if k == 1:
+            table.put(0, 6)
+        elif k < 6:
+            table.put(59 + k - 2, 6)
+        else:
+            table.put(63, 6)
+            table.put(k - 6, 8)
+        sym += k
+    data, seq, i = Bits(), np.asarray(words).tolist(), 0
+    while i < len(seq):
+        j = i
+        while j + 1 < len(seq) and seq[j + 1] == seq[i] and j - i < 255:
+            j += 1
+        (cw, n), (rc, rn), reps = code[seq[i]], code[run], j - i
+        if n + rn + 8 < n * reps:
+            data.put(cw, n)
+            data.put(rc, rn)
+            data.put(reps, 8)
+        else:
+            for _ in range(reps + 1):
+                data.put(cw, n)
+        i = j + 1
+    n_bits = len(data.out) * 8 + data.n
+    tab = table.bytes()
+    return struct.pack("<5I", im, run, len(tab), n_bits, 0) + tab + data.bytes()
+
+
+def dwa_chunk(np, planes: dict, level: float, plinear: bool) -> bytes:
+    """A DWA chunk (OpenEXR's DwaCompressor layout, version 2 with its
+    default rules) of `planes` {name: [n, w] float16 / float32}, names Y
+    or B, G, R (lossy) and A (run-length coded): each lossy channel taken
+    to OpenEXR's nonlinear form (x^(1/2.2) to 1, 1 + ln(x) / 2.2 past it)
+    unless a Y channel is pLinear, R, G, B to Y'CbCr (Rec. 709), 8x8 blocks
+    (edges repeated) through a float64 DCT, the AC rounded to steps of
+    level * 1e-4 * (1 + u + v) and all to half (no -0); AC words run-length and
+    Huffman-coded, DC words byte-split, delta-predicted and deflated, A's
+    byte planes run-length coded and deflated."""
+    import struct
+    import zlib
+
+    names = sorted(planes)
+    n, w = planes[names[0]].shape
+    lossy = [c for c in ("R", "G", "B") if c in planes] or ["Y"]
+
+    def nonlinear(x):
+        x = x.astype(np.float16).astype(np.float64)
+        a = np.abs(x)
+        with np.errstate(divide="ignore"):
+            return np.sign(x) * np.where(a <= 1, a ** (1 / 2.2), 1 + np.log(np.maximum(a, 1)) / 2.2)
+
+    comps = [planes["Y"].astype(np.float16).astype(np.float64) if plinear else nonlinear(planes["Y"])] \
+        if lossy == ["Y"] else [nonlinear(planes[c]) for c in "RGB"]
+    if len(comps) == 3:
+        r, g, b = comps
+        y = 0.2126 * r + 0.7152 * g + 0.0722 * b
+        comps = [y, (b - y) / 1.8556, (r - y) / 1.5747]
+    nby, nbx = -(-n // 8), -(-w // 8)
+    k = np.arange(8)
+    basis = np.where(k[:, None] == 0, np.sqrt(1 / 8), 0.5 * np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16))
+    step = level * 1e-4 * (1 + k[:, None] + k[None, :])
+    zig = np.empty(64, np.int64)
+    zig[list(DWA_ZIGZAG)] = np.arange(64)
+    blocks = []
+    for comp in comps:
+        pad = np.pad(comp, ((0, nby * 8 - n), (0, nbx * 8 - w)), mode="edge").reshape(nby, 8, nbx, 8)
+        coef = np.einsum("ux,axby,vy->abuv", basis, pad, basis)
+        q = (np.where((k[:, None] + k[None, :]) == 0, coef, np.round(coef / step) * step) + 0.0).astype(np.float16)
+        blocks.append(q.reshape(nby * nbx, 64)[:, zig].view(np.uint16))  # zig-zag order
+    ac = []
+    for i in range(nby * nbx):  # block after block, each block's channels in turn; OpenEXR's rleAc
+        for comp in blocks:
+            bits, j = comp[i].tolist(), 1
+            while j < 64:
+                if bits[j]:
+                    ac.append(bits[j])
+                    j += 1
+                    continue
+                run = 1
+                while j + run < 64 and not bits[j + run]:
+                    run += 1
+                ac.append(0 if run == 1 else 0xFF00 if j + run == 64 else 0xFF00 | run)
+                j += run
+    dc = np.concatenate([comp[:, 0] for comp in blocks]).astype("<u2").view(np.uint8)
+    t = np.concatenate([dc[0::2], dc[1::2]]).astype(np.int64)
+    t[1:] = (np.diff(t) + 384) % 256
+    dc_bytes = zlib.compress(t.astype(np.uint8).tobytes())
+    ac_bytes = huffman_stream(np, ac)
+    raw_rle = b"".join(np.ascontiguousarray(planes[c]).view(np.uint8).reshape(-1, planes[c].dtype.itemsize).T
+                       .tobytes() for c in names if c == "A")
+    rle = bytearray()
+    i = 0
+    while i < len(raw_rle):  # runs of 3-128 equal bytes as (n - 1, byte), other stretches as (-n, bytes)
+        j = i
+        while j + 1 < len(raw_rle) and raw_rle[j + 1] == raw_rle[i] and j + 1 - i < 128:
+            j += 1
+        if j - i >= 2:
+            rle += struct.pack("bB", j - i, raw_rle[i])
+            i = j + 1
+            continue
+        j = i
+        while j < len(raw_rle) and j - i < 127 and not (j + 2 < len(raw_rle) and raw_rle[j] == raw_rle[j + 1] ==
+                                                          raw_rle[j + 2]):
+            j += 1
+        rle += struct.pack("b", i - j) + raw_rle[i:j]
+        i = j
+    rle_bytes = zlib.compress(bytes(rle)) if raw_rle else b""
+    rules = b"".join(f.encode() + b"\0" + bytes([((c + 1) << 4) | (s << 2), t]) for f, s, t, c in (
+        [(f, 1, t, i) for i, f in enumerate("RGB") for t in (1, 2)] + [(f, 1, t, -1) for f in ("Y", "BY", "RY")
+                                                                      for t in (1, 2)]
+        + [("A", 2, t, -1) for t in (0, 1, 2)]))
+    counts = struct.pack("<11Q", 2, 0, 0, len(ac_bytes), len(dc_bytes), len(rle_bytes), len(rle) if raw_rle else 0,
+                         len(raw_rle), len(ac), len(dc) // 2, 0)
+    return counts + struct.pack("<H", len(rules) + 2) + rules + ac_bytes + dc_bytes + rle_bytes
+
+
+def write_dwa(np, path: Path, planes: dict, compression: str, level: float, plinear: bool) -> None:
+    """A scanline DWAA (32-line chunks) or DWAB (256) file of `planes`
+    ({name: [H, W] float16 / float32}), every channel pLinear where
+    `plinear`; a chunk that does not shrink is stored raw, as OpenEXR does."""
+    import struct
+
+    names = sorted(planes)
+    h, w = planes[names[0]].shape
+    kinds = {np.dtype("float16"): 1, np.dtype("float32"): 2}
+
+    def attr(name, kind, value):
+        return name.encode() + b"\0" + kind.encode() + b"\0" + struct.pack("<i", len(value)) + value
+
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    chlist = b"".join(c.encode() + b"\0" + struct.pack("<iB3xii", kinds[planes[c].dtype], int(plinear), 1, 1)
+                      for c in names) + b"\0"
+    header = (attr("channels", "chlist", chlist) + attr("compression", "compression", bytes([8 if compression ==
+                                                                                              "DWAA" else 9]))
+              + attr("dataWindow", "box2i", box) + attr("displayWindow", "box2i", box)
+              + attr("lineOrder", "lineOrder", b"\0") + attr("pixelAspectRatio", "float", struct.pack("<f", 1))
+              + attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1)) + b"\0")
+    lines = 32 if compression == "DWAA" else 256
+    chunks = []
+    for y in range(0, h, lines):
+        part = {c: planes[c][y:y + lines] for c in names}
+        raw = b"".join(part[c][r].tobytes() for r in range(len(part[names[0]])) for c in names)
+        data = dwa_chunk(np, part, level, plinear)
+        data = data if len(data) < len(raw) else raw
+        chunks.append(struct.pack("<ii", y, len(data)) + data)
+    head = struct.pack("<ii", 20000630, 2) + header
+    offsets, pos = [], len(head) + 8 * len(chunks)
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    path.write_bytes(head + struct.pack(f"<{len(chunks)}Q", *offsets) + b"".join(chunks))
+
+
+def dwa_chunk_data(np, path: Path) -> list:
+    """The stored bytes of each chunk of a scanline single-part file
+    (b"" where its offset is 0, as for a chunk never written)."""
+    import struct
+
+    from sgam_neurips22_tpu_torch.pipeline import exr
+
+    data = path.read_bytes()
+    buf = exr._Bytes(data, str(path))
+    hdr = exr.read_header(buf)
+    n = -(-(hdr.data_window[3] - hdr.data_window[1] + 1) // exr.LINES[hdr.compression])
+    out = []
+    for off in struct.unpack(f"<{n}Q", buf.take(8 * n)):
+        size = struct.unpack_from("<i", data, off + 4)[0] if off else 0
+        out.append(data[off + 8:off + 8 + size] if off else b"")
+    return out
+
+
+def dwa_block_stats(np, path: Path) -> dict:
+    """Blocks of the file's lossy channels, and how many carry no AC (the
+    DC-only shortcut), from the AC words of each compressed chunk."""
+    import struct
+    import zlib
+
+    from sgam_neurips22_tpu_torch.pipeline import exr
+
+    out = {"blocks": 0, "dc_only": 0}
+    for c, (_, size, raw) in zip(dwa_chunk_data(np, path), exr_chunks(np, path)):
+        if size >= raw:
+            continue
+        counts = struct.unpack_from("<11Q", c)
+        at = 88 + struct.unpack_from("<H", c, 88)[0] + counts[2]
+        n_dc = len(zlib.decompress(c[at + counts[3]:at + counts[3] + counts[4]])) // 2
+        _, last, _ = exr._dwa_ac_blocks(exr.huf_words(c[at:at + counts[3]], counts[8]), 0, n_dc, str(path))
+        out["blocks"] += n_dc
+        out["dc_only"] += int((last == 0).sum())
+    return out
+
+
+def cv2_dwa_cases(np, root: Path, failures) -> dict:
+    """EXR_DWA_CASES, written by `write_dwa` (this machine's cv2 writes
+    DWA files with no chunks: its OpenEXR 2.3.0 leaves the offset table
+    zero, which is probed and recorded) and read by OpenEXR's own decoder
+    (cv2.imread) and by the port's `read_exr` with both Huffman decoders:
+    bit-equal, every chunk stored compressed, and DC-only blocks present
+    at the high level. A cv2 that cannot read the files fails the phase.
+    Then the seconds of `read_exr` on a 256^2 BGRA HALF file as DWAA
+    (written here), ZIP and PIZ (written by cv2), recorded, not gated."""
+    import struct
+
+    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+    import cv2
+
+    from sgam_neurips22_tpu_torch.pipeline import exr
+
+    exr._piz_lib()  # built before anything is timed
+    rng = np.random.default_rng(SEED + 31)
+    out = {"cases": {}}
+    probe = root / "cv2_dwaa.exr"
+    cv2.imwrite(str(probe), np.ones((64, 64, 3), np.float32), [cv2.IMWRITE_EXR_COMPRESSION,
+                                                              cv2.IMWRITE_EXR_COMPRESSION_DWAA])
+    try:  # OpenCV 4.13's OpenEXR 2.3.0 returns True and leaves every chunk offset 0
+        out["cv2_writes_dwaa"] = all(dwa_chunk_data(np, probe))
+    except (ValueError, struct.error) as e:
+        out["cv2_writes_dwaa"] = f"no ({e})"
+    for name, compression, chans, ptype, rows, level, plinear in EXR_DWA_CASES:
+        yy, xx = np.mgrid[0:rows, 0:EXR_SIDE]
+        planes = {}
+        for i, c in enumerate(chans):  # smooth fields with noise, past 1 (the log branch), a dark corner
+            f = 0.6 + 0.5 * np.sin(yy / (6.0 + i) + i) * np.cos(xx / (9.0 - i)) + rng.uniform(0, 0.02, (rows, EXR_SIDE))
+            f = f * np.where((yy < 40) & (xx < 60), 0.01, 1.0) * (1.5 if c == "R" else 1.0)
+            planes[c] = np.clip(f, 0, 1).astype(np.float16) if c == "A" else f.astype(
+                np.float16 if ptype == "HALF" else np.float32)
+        path = root / f"{name}.exr"
+        write_dwa(np, path, planes, compression, level, plinear)
+        theirs = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        case = {"compression": compression, "channels": chans, "pixel_type": ptype, "rows": rows, "level": level,
+                "bytes": path.stat().st_size, "cv2_read": theirs is not None}
+        for native in (True, False):
+            t0 = time.perf_counter()
+            hdr, got = exr.read_exr(str(path), native=native)
+            case["native_seconds" if native else "numpy_seconds"] = time.perf_counter() - t0
+            ours = got["Y"].astype(np.float32) if chans == "Y" else np.stack(
+                [got[c].astype(np.float32) for c in chans], axis=2)
+            case["equal_cv2" if native else "numpy_equal_cv2"] = bool(
+                theirs is not None and hdr.compression == compression
+                and np.array_equal(ours.view(np.uint32), theirs.view(np.uint32)))
+        chunks = exr_chunks(np, path)
+        case["chunks"], case["compressed_chunks"] = len(chunks), sum(size < raw for _, size, raw in chunks)
+        case["plinear_channels"] = sum(c.linear for c in hdr.channels)
+        case.update(dwa_block_stats(np, path))
+        case["max_abs_vs_written"] = float(np.max(np.abs(ours - (planes["Y"] if chans == "Y" else np.stack(
+            [planes[c] for c in chans], axis=2)).astype(np.float32))))
+        case["ok"] = bool(case["equal_cv2"] and case["numpy_equal_cv2"] and case["compressed_chunks"] == len(chunks)
+                          and case["plinear_channels"] == len(chans) * plinear
+                          and (level < 1000 or case["dc_only"] > case["blocks"] // 2))
+        out["cases"][name] = case
+    yy, xx = np.mgrid[0:EXR_SIDE, 0:EXR_SIDE]
+    img = np.stack([0.6 + 0.5 * np.sin(yy / (6.0 + i) + i) * np.cos(xx / 9.0) for i in range(4)], axis=2)
+    img = (img + rng.uniform(0, 0.02, img.shape)).astype(np.float32)
+    img[..., 3] = np.clip(img[..., 3], 0, 1)
+    write_dwa(np, root / "time_dwaa.exr", {c: img[..., i].astype(np.float16) for i, c in enumerate("BGRA")},
+              "DWAA", 45, False)
+    for codec in ("ZIP", "PIZ"):
+        cv2.imwrite(str(root / f"time_{codec.lower()}.exr"), img, [
+            cv2.IMWRITE_EXR_TYPE, cv2.IMWRITE_EXR_TYPE_HALF, cv2.IMWRITE_EXR_COMPRESSION,
+            getattr(cv2, f"IMWRITE_EXR_COMPRESSION_{codec}")])
+    out["read_seconds_256_bgra_half"] = {}
+    for codec in ("dwaa", "zip", "piz"):
+        for native in (True, False):  # the C++ Huffman decoder's best of 3, the numpy one's once
+            best = float("inf")
+            for _ in range(3 if native else 1):
+                t0 = time.perf_counter()
+                exr.read_exr(str(root / f"time_{codec}.exr"), native=native)
+                best = min(best, time.perf_counter() - t0)
+            out["read_seconds_256_bgra_half"][f"{codec}{'' if native else '_numpy'}"] = best
+        out["read_seconds_256_bgra_half"][f"{codec}_bytes"] = (root / f"time_{codec}.exr").stat().st_size
+    out["ok"] = all(c["ok"] for c in out["cases"].values()) and len(out["cases"]) == len(EXR_DWA_CASES)
+    return out
+
+
 def cv2_exr_cases(np, root: Path, failures) -> dict:
     """EXR_CV2_CASES written by cv2.imwrite and read by the port
     (`read_exr`, native and numpy PIZ decoders) against cv2.imread. Every
@@ -3646,13 +3999,15 @@ def convert_exr_phase(np, root: Path, failures) -> dict:
         rep["cv2_exr"] = ("no EXR codec" if img is None else
                           bool(np.array_equal(img, np.stack([plain[c].astype(np.float32) for c in "BGR"], axis=2))))
         rep["cv2_cases"] = cv2_exr_cases(np, root, failures)
+        rep["dwa"] = cv2_dwa_cases(np, root, failures)
     except ImportError:
         rep["cv2_exr"] = "cv2 not installed"
     except Exception as e:  # an OpenCV build without the codec raises from imread or imwrite
         rep["cv2_exr"] = f"no EXR codec ({type(e).__name__}: {e})"
     cv2_ok = [c["ok"] for c in rep.get("cv2_cases", {}).values()]
     rep["ok"] = (all(c["ok"] for c in rep["cases"].values()) and rep["openexr"] in (True, "not installed")
-                 and rep["cv2_exr"] is True and len(cv2_ok) == len(EXR_CV2_CASES) and all(cv2_ok))
+                 and rep["cv2_exr"] is True and len(cv2_ok) == len(EXR_CV2_CASES) and all(cv2_ok)
+                 and rep.get("dwa", {}).get("ok", False))
     if not rep["ok"]:
         failures.append(f"convert_exr: {rep}")
     return rep

@@ -27,7 +27,8 @@ AOT export of the inference step (`export_aot`: `torch.export` of the step
 with its weights, reloaded without the model code); the checkpoint-parity
 tool (`parity_check`, against goldens or its torch-functional oracle) and
 the EXR converter (`convert_exr`, over the reader `pipeline.exr`: numpy,
-zlib and a C++ PIZ decoder); generate's `--matmul_precision`
+zlib and a C++ Huffman decoder for PIZ and DWA; every OpenEXR codec, tiled
+and multipart files); generate's `--matmul_precision`
 (`core.device.set_matmul_precision`); with hand-written
 CUDA kernels for the z-buffer merge (`ops.zbuffer`), the codeword search
 (`ops.vq`), the flash attention forward and backward (`ops.attention`) and

@@ -8,9 +8,10 @@ im_XXXXX.png (the sRGB tone-mapped colour, `linear_to_srgb`, as
 clip(x * 255, 0, 255) in uint8), dm_XXXXX.npy (depth, float32) and, where
 the render has an object-index pass, in_XXXXX.npy (float32). Offline host
 tooling: files are read by the port's own reader (`pipeline/exr.py`,
-numpy, zlib and a C++ PIZ decoder: scanline files with NONE, RLE, ZIPS,
-ZIP, PIZ or PXR24 compression; anything else raises, naming what it
-lacks) and PNGs written by
+numpy, zlib and a C++ Huffman decoder: scanline and tiled files and a
+multipart file's first part, with any of OpenEXR's compressions, DWAA and
+DWAB included; deep files and subsampled channels raise, naming what they
+lack, as OpenEXR's InputFile refuses them) and PNGs written by
 `pipeline/png.py`, with neither the OpenEXR package nor OpenCV.
 
 Channels are found by suffix, as the JAX tool's multilayer reader finds

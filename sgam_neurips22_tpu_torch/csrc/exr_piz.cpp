@@ -1,4 +1,5 @@
-// OpenEXR's PIZ decoder for one chunk: host code for pipeline/exr.py, built
+// OpenEXR's PIZ decoder for one chunk, and its Huffman decoder alone (DWAA and
+// DWAB code their AC words with it): host code for pipeline/exr.py, built
 // with g++ at first use by core/native.py. pipeline/exr.py holds the same
 // decoder in numpy (`piz_words_numpy`), and the tests hold the two against
 // each other bit for bit.
@@ -231,6 +232,13 @@ int64_t piz_decode(const uint8_t* in, int64_t n_in, int32_t nx, int32_t ny, cons
   }
   for (int64_t i = 0; i < n_out; ++i) out[i] = lut[out[i]];
   return kOk;
+}
+
+// Decode the Huffman stream of n_in bytes at `in` (the coding PIZ chunks
+// and the AC words of DWAA and DWAB chunks share) into n_out words.
+// Returns 0, or a negative Status.
+int64_t huf_words(const uint8_t* in, int64_t n_in, uint16_t* out, int64_t n_out) {
+  return huf_decode(in, n_in, out, n_out);
 }
 
 }  // extern "C"
