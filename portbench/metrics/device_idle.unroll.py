@@ -1,0 +1,10 @@
+"""The device's idle share over the measured window of requests: 1 - the
+device's busy time a frame (the union of the card's record intervals in a
+CUDA-only traced session, portbench/trace.py) times the window's frames,
+over the window's seconds. The traced session's own host time runs longer
+than the window's, by the profiler's cost a launch, so it is not the
+base. Moves frames_per_s."""
+
+
+def read(ctx):
+    return ctx.idle_pct()
